@@ -1,0 +1,164 @@
+"""The weight bridge: the JAX package's numpy pytrees <-> the port's modules.
+
+The trees are the payload ``icd_tpu/checkpoint.py:98-115`` pickles
+(``encoder`` = ``{"resnet": ...}``, ``decoder`` = the attention decoder's
+tree). Layouts:
+
+- convolution kernels HWIO (JAX) <-> OIHW (here);
+- Linear ``w`` (in, out) <-> ``nn.Linear.weight`` (out, in);
+- LSTM ``wi`` (in, 4H) / ``wh`` (H, 4H) <-> ``weight_ih`` (4H, in) /
+  ``weight_hh`` (4H, H), gate order (i, f, g, o) on both sides;
+- BN ``scale``/``bias``/``mean``/``var`` and the embedding table as they are.
+
+Shapes are read off the tree, so any ResNet depth or decoder width
+converts. ``*_to_jax`` are the inverses and return float32 numpy trees.
+Converted modules live on the CPU; move them with ``.to(device)``.
+"""
+
+import numpy as np
+import torch
+
+from .models.attention import AttentionDecoder
+from .models.encoder import EncoderAttention
+from .models.resnet import ResNet
+
+
+def _tensor(x):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes arrays: no torch view
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _numpy(t):
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def _conv_from(w):
+    return _tensor(w).permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+
+
+def _conv_to(t):
+    return _numpy(t).transpose(2, 3, 1, 0).copy()  # OIHW -> HWIO
+
+
+def _bn_from(bn, tree):
+    bn.scale.data = _tensor(tree["scale"])
+    bn.bias.data = _tensor(tree["bias"])
+    bn.mean = _tensor(tree["mean"])
+    bn.var = _tensor(tree["var"])
+
+
+def _bn_to(bn):
+    return {"scale": _numpy(bn.scale), "bias": _numpy(bn.bias),
+            "mean": _numpy(bn.mean), "var": _numpy(bn.var)}
+
+
+def resnet_from_jax(tree):
+    """A ``ResNet`` module holding the JAX ResNet tree's values."""
+    depths = [len(blocks) for blocks in tree["layers"]]
+    widths = [blocks[0]["conv1"].shape[-1] for blocks in tree["layers"]]
+    in_channels = tree["stem"]["conv"].shape[2]
+    net = ResNet(depths, widths, in_channels)
+    net.stem.conv.data = _conv_from(tree["stem"]["conv"])
+    _bn_from(net.stem.bn, tree["stem"]["bn"])
+    for blocks, tblocks in zip(net.layers, tree["layers"]):
+        for block, tb in zip(blocks, tblocks):
+            for i in (1, 2, 3):
+                getattr(block, "conv{}".format(i)).data = _conv_from(
+                    tb["conv{}".format(i)])
+                _bn_from(getattr(block, "bn{}".format(i)),
+                         tb["bn{}".format(i)])
+            if ("downsample" in tb) != (block.downsample is not None):
+                raise ValueError("downsample layout differs from the "
+                                 "ResNet structure of these widths")
+            if block.downsample is not None:
+                block.downsample.conv.data = _conv_from(
+                    tb["downsample"]["conv"])
+                _bn_from(block.downsample.bn, tb["downsample"]["bn"])
+    return net
+
+
+def resnet_to_jax(net):
+    tree = {"stem": {"conv": _conv_to(net.stem.conv),
+                     "bn": _bn_to(net.stem.bn)},
+            "layers": []}
+    for blocks in net.layers:
+        tblocks = []
+        for block in blocks:
+            tb = {}
+            for i in (1, 2, 3):
+                tb["conv{}".format(i)] = _conv_to(
+                    getattr(block, "conv{}".format(i)))
+                tb["bn{}".format(i)] = _bn_to(getattr(block, "bn{}".format(i)))
+            if block.downsample is not None:
+                tb["downsample"] = {"conv": _conv_to(block.downsample.conv),
+                                    "bn": _bn_to(block.downsample.bn)}
+            tblocks.append(tb)
+        tree["layers"].append(tblocks)
+    return tree
+
+
+def encoder_from_jax(tree):
+    """``EncoderAttention`` from a JAX attention-encoder tree."""
+    return EncoderAttention(resnet_from_jax(tree["resnet"]))
+
+
+def encoder_to_jax(encoder):
+    return {"resnet": resnet_to_jax(encoder.resnet)}
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+def _linear_from(lin, tree):
+    lin.weight.data = _tensor(tree["w"]).t().contiguous()
+    lin.bias.data = _tensor(tree["b"])
+
+
+def _linear_to(lin):
+    return {"w": _numpy(lin.weight).T.copy(), "b": _numpy(lin.bias)}
+
+
+def decoder_from_jax(tree):
+    """``AttentionDecoder`` from a JAX attention-decoder tree."""
+    att = tree["attention"]
+    enc_dim, att_dim = np.shape(att["enc_att"]["w"])
+    dec_dim = np.shape(att["dec_att"]["w"])[0]
+    vocab_size, embed_size = np.shape(tree["embedding"])
+    with torch.device("meta"):
+        dec = AttentionDecoder(vocab_size, att_dim, dec_dim, embed_size,
+                               enc_dim)
+    dec = dec.to_empty(device="cpu")
+    for name in ("enc_att", "dec_att", "full_att"):
+        _linear_from(getattr(dec.attention, name), att[name])
+    for name in ("h_lin", "c_lin", "f_beta", "fc"):
+        _linear_from(getattr(dec, name), tree[name])
+    lstm = tree["lstm"]
+    dec.lstm.weight_ih.data = _tensor(lstm["wi"]).t().contiguous()
+    dec.lstm.weight_hh.data = _tensor(lstm["wh"]).t().contiguous()
+    dec.lstm.bias_ih.data = _tensor(lstm["bi"])
+    dec.lstm.bias_hh.data = _tensor(lstm["bh"])
+    dec.embedding.weight.data = _tensor(tree["embedding"])
+    return dec
+
+
+def decoder_to_jax(dec):
+    return {
+        "attention": {name: _linear_to(getattr(dec.attention, name))
+                      for name in ("enc_att", "dec_att", "full_att")},
+        "lstm": {"wi": _numpy(dec.lstm.weight_ih).T.copy(),
+                 "wh": _numpy(dec.lstm.weight_hh).T.copy(),
+                 "bi": _numpy(dec.lstm.bias_ih),
+                 "bh": _numpy(dec.lstm.bias_hh)},
+        "h_lin": _linear_to(dec.h_lin),
+        "c_lin": _linear_to(dec.c_lin),
+        "f_beta": _linear_to(dec.f_beta),
+        "fc": _linear_to(dec.fc),
+        "embedding": _numpy(dec.embedding.weight),
+    }

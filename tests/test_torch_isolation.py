@@ -1,0 +1,61 @@
+"""icd_tpu_torch stands alone: it imports neither jax nor optax nor
+anything of icd_tpu, and its entry points go to the card unless the CPU
+is asked for."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import icd_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(icd_tpu_torch.__path__,
+                                               'icd_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+print(sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu')))
+"""
+
+
+def test_package_imports_no_jax_and_no_icd_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    count, foreign = proc.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 14
+    assert foreign == "[]"
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_default_device_raises_without_a_card():
+    from icd_tpu_torch.device import resolve_device
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_do_not_fall_back_to_the_cpu():
+    from icd_tpu_torch.decoding.serve import make_beam_captioner
+    from icd_tpu_torch.models.resnet import init_resnet
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_resnet(torch.Generator().manual_seed(0), (1, 1, 1, 1),
+                    (4, 8, 8, 16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_beam_captioner(None, None, 1, 2)

@@ -1,0 +1,86 @@
+"""COCO captioning dataset, image side (copy of the parts of
+``icd_tpu/data/dataset.py:59-163`` that ``beam_eval`` uses).
+
+``COCODataset(mode)`` indexes the split's annotations and keeps the
+reference's caption filter: a caption joins the caption <-> image
+mapping when its *character* length is at most ``caption_max_len``
+(reference: dataset.py:33-34; -1 disables it). ``load_image_batch``
+decodes images with PIL and resizes them to 224 x 224 BILINEAR as uint8
+NHWC, as the JAX package's default loader does. PIL is imported inside
+the decode function only: a machine that runs the card path from tensors
+(``chip_smoke.py``) needs no PIL. ``__getitem__``, the tokenizer and the
+opt-in native libjpeg loader come with later slices (ROADMAP.md).
+"""
+
+import os
+
+import numpy as np
+
+from ..pathconf import PathConfig
+from ..vocabulary import load_vocab
+from .coco import COCO
+
+IMG_SIZE = 224  # transforms.Resize((224, 224)) in every reference entry point.
+
+
+def decode_image(path, size=IMG_SIZE):
+    """(size, size, 3) uint8 RGB: PIL decode, BILINEAR resize."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    img = img.resize((size, size), Image.BILINEAR)
+    return np.asarray(img, dtype=np.uint8)
+
+
+class COCODataset:
+    """The caption <-> image index of one split (reference: dataset.py:14)."""
+
+    def __init__(self, mode, caption_max_len=50, vocab=None,
+                 img_size=IMG_SIZE):
+        if mode not in ("train", "val"):
+            raise ValueError("mode is 'train' or 'val', got {!r}".format(mode))
+        self.mode = mode
+        self.vocab = vocab if vocab is not None else load_vocab()
+        self.caption_max_len = (caption_max_len if caption_max_len != -1
+                                else float("inf"))
+        self.img_size = img_size
+        self.anno_file = get_anno_file(mode)
+        self.img_dir = get_img_dir(mode)
+        self.coco = COCO(self.anno_file)
+        self.img_ids = list(sorted(self.coco.imgs.keys()))
+        self.caption_img_mappings = self._build_caption_img_mappings()
+
+    def _build_caption_img_mappings(self):
+        mappings = []
+        for img_id in self.img_ids:
+            anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id))
+            mappings.extend(
+                {"caption": ann["caption"], "img_id": img_id}
+                for ann in anns
+                if len(ann["caption"]) <= self.caption_max_len)
+        return mappings
+
+    def _img_path(self, img_id):
+        return os.path.join(
+            self.img_dir, self.coco.loadImgs(img_id)[0]["file_name"])
+
+    def load_image_batch(self, img_ids):
+        """Decoded images for the given ids: (N, H, W, 3) uint8."""
+        return np.stack([decode_image(self._img_path(i), self.img_size)
+                         for i in img_ids])
+
+    def __len__(self):
+        # Number of captions; an image can have several.
+        return len(self.caption_img_mappings)
+
+
+def get_anno_file(mode):
+    if mode == "train":
+        return PathConfig.train_anno_file
+    return PathConfig.val_anno_file
+
+
+def get_img_dir(mode):
+    if mode == "train":
+        return PathConfig.train_img_dir
+    return PathConfig.val_img_dir

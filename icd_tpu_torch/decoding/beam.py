@@ -171,13 +171,29 @@ def beam_search_batched(decoder, encoder_grids, beam_size, start_id, end_id,
         h = _where_running(running, _rows(new_h, sel_parents), h)
         c = _where_running(running, _rows(new_c, sel_parents), c)
         step += 1
-    steps = step - 1
+    return beam_outputs(alpha_hist, parent_hist, best_seq, best_len,
+                        best_step, best_parent, best_last_alpha, found,
+                        step - 1, start_id, end_id)
 
-    # Backtrack the winner's alpha trail (beam.py:222-240): the ancestor
-    # slot at step s-1 is parent_hist[s, slot at s]. Rows at or beyond
-    # best_step are replaced below, and no image's best_step exceeds the
-    # steps run, so the walk starts at the last step run.
-    alphas = torch.zeros((b, n_rows, p), **f32)
+
+def beam_outputs(alpha_hist, parent_hist, best_seq, best_len, best_step,
+                 best_parent, best_last_alpha, found, steps, start_id,
+                 end_id):
+    """The result dict from a beam search's history and running best.
+
+    ``alpha_hist[s, i, j]`` is the attention emitted at step s by the beam
+    packed into slot j of image i, and ``parent_hist[s, i, j]`` its slot at
+    step s-1, for s = 1..steps. The winner's alpha trail is backtracked
+    (beam.py:222-240): rows at or beyond ``best_step`` are replaced by
+    ``best_last_alpha``, and no image's best_step exceeds the steps run,
+    so the walk starts at the last step run. Then the failure protocol:
+    ``[start, end]`` with seq_len 2 (:242-246; gen_captions.py:123-126).
+    """
+    b, p = best_last_alpha.shape
+    n_rows = best_seq.shape[1]
+    dev = best_seq.device
+    image_ids = torch.arange(b, device=dev)
+    alphas = torch.zeros((b, n_rows, p), dtype=torch.float32, device=dev)
     alphas[:, 0] = 1.0
     slot = best_parent
     for s in range(steps, 0, -1):
@@ -187,8 +203,7 @@ def beam_search_batched(decoder, encoder_grids, beam_size, start_id, end_id,
         slot = torch.where(use, parent_hist[s, image_ids, slot], slot)
     alphas[image_ids, best_step] = best_last_alpha
 
-    # Failure protocol: [start, end] (gen_captions.py:123-126).
-    fail_seq = torch.full((n_rows,), end_id, **long)
+    fail_seq = torch.full((n_rows,), end_id, dtype=torch.long, device=dev)
     fail_seq[0] = start_id
     seq = torch.where(found[:, None], best_seq, fail_seq)
     seq_len = torch.where(found, best_len, 2)

@@ -2,8 +2,12 @@
 of ``icd_tpu/decoding/serve.py:398-428`` and of the float path of
 ``tools/beam_eval.py:130-136``).
 
-uint8 NHWC images -> ImageNet normalisation -> ResNet-101 grid ->
-``beam_search_batched``, all on the card in ``compute_dtype``.
+uint8 NHWC images -> ImageNet normalisation -> ResNet-101 grid -> a beam
+search, all on the card in ``compute_dtype``. The beam search is
+``beam_search_batched`` (one K1 launch a step) unless the caller passes
+another function of the same signature, such as
+``ops.fused_beam.beam_search_fused`` (the whole search in one K2
+launch), as ``tools/beam_eval.py:76-85`` swaps it.
 """
 
 import copy
@@ -23,12 +27,13 @@ class BeamCaptioner:
     """
 
     def __init__(self, encoder, decoder, start_id, end_id, beam_size,
-                 compute_dtype, device):
+                 compute_dtype, device, beam_fn=beam_search_batched):
         self.encoder, self.decoder = encoder, decoder
         self.start_id, self.end_id = start_id, end_id
         self.beam_size = beam_size
         self.compute_dtype = compute_dtype
         self.device = device
+        self.beam_fn = beam_fn
 
     @torch.inference_mode()
     def encode(self, imgs):
@@ -39,7 +44,7 @@ class BeamCaptioner:
 
     @torch.inference_mode()
     def decode(self, grid):
-        return beam_search_batched(
+        return self.beam_fn(
             self.decoder, grid.to(self.compute_dtype), self.beam_size,
             self.start_id, self.end_id)
 
@@ -48,7 +53,8 @@ class BeamCaptioner:
 
 
 def make_beam_captioner(encoder, decoder, start_id, end_id, beam_size=5,
-                        compute_dtype=torch.bfloat16, device=None):
+                        compute_dtype=torch.bfloat16, device=None,
+                        beam_fn=beam_search_batched):
     """Build the captioner on ``device`` (cuda unless told otherwise).
 
     The encoder's parameters are cast to ``compute_dtype`` once, its BN
@@ -68,4 +74,4 @@ def make_beam_captioner(encoder, decoder, start_id, end_id, beam_size=5,
                 p.data = p.data.contiguous(memory_format=torch.channels_last)
     dec = copy.deepcopy(decoder).to(device=device, dtype=compute_dtype)
     return BeamCaptioner(enc.eval(), dec.eval(), start_id, end_id,
-                         beam_size, compute_dtype, device)
+                         beam_size, compute_dtype, device, beam_fn)

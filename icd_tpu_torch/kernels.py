@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C interface.
-At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into
-``build/`` at the repository root and loaded with ctypes; pointers and
-the stream go over as ``ctypes.c_void_p``. The library's file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at
+Each kernel is one source ``csrc/<name>.cu`` with a plain C interface;
+device code shared between kernels lives in ``csrc/*.cuh`` headers. At
+first use a source is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into ``build/`` at the repository root and loaded with ctypes; pointers
+and the stream go over as ``ctypes.c_void_p``. The library's file name
+carries a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing here runs at
 import time: the CPU tests import every module without a compiler.
 """
 
@@ -19,7 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-KERNELS = ("fused_attention",)
+KERNELS = ("fused_attention", "fused_beam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,10 +40,13 @@ def _nvcc():
 def library_path(name):
     """(source path, library path) of kernel ``name``."""
     src = os.path.join(SOURCE_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, "lib{}_{}.so".format(name, digest))
+    headers = sorted(f for f in os.listdir(SOURCE_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(SOURCE_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return src, os.path.join(BUILD_DIR, "lib{}_{}.so".format(
+        name, digest.hexdigest()[:16]))
 
 
 def build(name):

@@ -6,11 +6,14 @@ conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: f32 ctx atol 2e-5 and alpha atol 2e-6 (those of
+Tolerances. K1: f32 ctx atol 2e-5 and alpha atol 2e-6 (those of
 tests/test_fused_attention.py; sums in another order); bf16 inputs
 against the plain version in f32 on the same rounded inputs, ctx within
 2^-8 |ref| + 1e-5 per element (the kernel rounds its f32 result to bf16
-once, at most 2^-9 relative) and alpha atol 1e-5.
+once, at most 2^-9 relative) and alpha atol 1e-5. K2: f32 tokens equal
+and alphas atol 5e-6 (sums in another order); bf16 at least 15 of every
+16 captions equal, since bf16-rounded logits turn a last-bit difference
+of a sum into a different order of two near-tie beams.
 """
 
 import contextlib
@@ -27,6 +30,9 @@ from icd_tpu_torch.models.encoder import EncoderAttention
 from icd_tpu_torch.models.resnet import init_resnet
 from icd_tpu_torch.ops.fused_attention import (fused_attention,
                                                fused_attention_reference)
+from icd_tpu_torch.ops.fused_beam import (beam_search_fused,
+                                          beam_search_fused_reference)
+from icd_tpu_torch.testing import steered_decoder
 
 
 @pytest.fixture
@@ -135,6 +141,95 @@ def test_captioner_on_card_matches_cpu(card):
     outs = [make_beam_captioner(encoder, decoder, 57, 58, beam_size=3,
                                 compute_dtype=torch.float32,
                                 device=dev)(imgs)
+            for dev in (card, "cpu")]
+    for key in ("seq", "seq_len", "found"):
+        assert torch.equal(outs[0][key].cpu(), outs[1][key]), key
+    torch.testing.assert_close(outs[0]["alphas"].cpu(), outs[1]["alphas"],
+                               atol=1e-4, rtol=0)
+
+
+# (images, beams, P, D, A, H, E, V, max_steps): ragged sizes, one beam,
+# the most beams K2 takes, and 70 rows (more than one 64-row tile).
+K2_SHAPES = [(3, 3, 49, 200, 40, 48, 24, 997, 9),
+             (4, 1, 16, 64, 24, 32, 16, 40, 7),
+             (2, 8, 20, 96, 33, 40, 8, 123, 12),
+             (14, 5, 49, 128, 32, 48, 16, 500, 12)]
+
+
+def _k2_problem(card, shape, dtype, seed=0):
+    b, k, p, d, a, h, e, v, steps = shape
+    dec = steered_decoder(v, a, h, e, d, seed, device=card).to(dtype)
+    grids = torch.randn(b, p, d, generator=torch.Generator().manual_seed(
+        seed + 1)).to(card, dtype)
+    return dec, grids, k, v - 3, v - 2, steps
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_f32_matches_plain(card, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dec, grids, k, start, end, steps = _k2_problem(card, shape, torch.float32)
+    before = beam_search_fused.launches
+    out = beam_search_fused(dec, grids, k, start, end, steps)
+    assert beam_search_fused.launches == before + 1
+    ref = beam_search_fused_reference(dec, grids, k, start, end, steps)
+    loop = beam_search_batched(dec, grids, k, start, end, steps)
+    for key in ("seq", "seq_len", "found"):
+        assert torch.equal(out[key], ref[key]), key
+        assert torch.equal(out[key], loop[key]), key
+    assert out["steps"] == ref["steps"] == loop["steps"]
+    torch.testing.assert_close(out["alphas"], ref["alphas"], atol=5e-6,
+                               rtol=0)
+
+
+def test_k2_bf16_matches_plain(card):
+    shape = (32, 5, 49, 128, 32, 48, 16, 500, 12)
+    dec, grids, k, start, end, steps = _k2_problem(card, shape,
+                                                   torch.bfloat16, seed=3)
+    out = beam_search_fused(dec, grids, k, start, end, steps)
+    ref = beam_search_fused_reference(dec, grids, k, start, end, steps)
+    same = int((out["seq"] == ref["seq"]).all(dim=1).sum())
+    assert same >= 30, same
+    assert bool(out["alphas"].isfinite().all())
+
+
+def test_k2_rejects_what_it_does_not_take(card):
+    dec, grids, k, start, end, steps = _k2_problem(card, K2_SHAPES[0],
+                                                   torch.float32)
+    with pytest.raises(TypeError):  # half precision
+        beam_search_fused(dec.half(), grids.half(), k, start, end, steps)
+    with pytest.raises(TypeError):  # grid and decoder of two dtypes
+        beam_search_fused(dec.float(), grids.bfloat16(), k, start, end,
+                          steps)
+    with pytest.raises(ValueError):  # more beams than a block takes
+        beam_search_fused(dec.float(), grids.float(), 9, start, end, steps)
+    with pytest.raises(ValueError):
+        beam_search_fused(dec.float(), grids.float(), k, start, end, 0)
+    with pytest.raises(ValueError):
+        beam_search_fused(dec.float(), grids.float(), k, start, 10 ** 6,
+                          steps)
+    # (k + 1) * A floats of att_dec rows exceed a block's shared memory:
+    # the kernel's launch set-up refuses, and the wrapper raises its error.
+    wide = steered_decoder(40, 8192, 32, 16, 64, seed=0, device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        beam_search_fused(wide, torch.randn(2, 16, 64, device=card), 8, 37,
+                          38, 3)
+    # ... and leaves no error behind to fail the next good launch.
+    out = beam_search_fused(dec.float(), grids.float(), k, start, end, steps)
+    assert out["steps"] >= 1
+
+
+def test_fused_captioner_on_card_matches_cpu(card):
+    """The fused slice in f32 with TF32 off: K2 on the card == its plain
+    version on the CPU, token for token."""
+    gen = torch.Generator().manual_seed(3)
+    encoder = EncoderAttention(init_resnet(gen, (1, 1, 1, 1), (4, 8, 8, 16),
+                                           device="cpu"))
+    decoder = steered_decoder(60, 32, 48, 16, 64, seed=0, device="cpu")
+    imgs = torch.randint(0, 256, (3, 64, 64, 3), generator=gen,
+                         dtype=torch.uint8)
+    outs = [make_beam_captioner(encoder, decoder, 57, 58, beam_size=3,
+                                compute_dtype=torch.float32, device=dev,
+                                beam_fn=beam_search_fused)(imgs)
             for dev in (card, "cpu")]
     for key in ("seq", "seq_len", "found"):
         assert torch.equal(outs[0][key].cpu(), outs[1][key]), key

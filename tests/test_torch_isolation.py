@@ -1,6 +1,7 @@
 """icd_tpu_torch stands alone: it imports neither jax nor optax nor
-anything of icd_tpu, and its entry points go to the card unless the CPU
-is asked for."""
+anything of icd_tpu, nor PIL until an image is decoded (the card machine
+may have none), and its entry points go to the card unless the CPU is
+asked for."""
 
 import os
 import subprocess
@@ -20,7 +21,8 @@ for name in names:
     importlib.import_module(name)
 print(len(names))
 print(sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu')))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu',
+                                    'PIL')))
 """
 
 

@@ -6,7 +6,9 @@
 Phases, one line of output each:
 
 1. build       compile every kernel from csrc/ (one nvcc per source, all
-               at once) and print the build seconds;
+               at once) and print the build seconds; then k2_ptxas, the
+               ptxas report of the bf16 K2 (registers, stack), which must
+               show no spills;
 2. k1          K1 (fused attention) against its plain PyTorch version, at
                a ragged shape and at the serving shapes: 64 images x 5
                beams, P=196, D=2048,
@@ -15,8 +17,8 @@ Phases, one line of output each:
                the plain version in f32 on the same bf16-rounded inputs,
                ctx |err| <= 2^-8 |ref| + 1e-5 (bf16 rounding of the output
                is at most 2^-9 relative) and alpha atol 1e-5. Times both
-               (CUDA events, L2 flushed before each launch) and prints
-               the bound;
+               (CUDA events, L2 flushed before each launch, the card
+               asleep while the host sets it up) and prints the bound;
 3. path_f32    a seeded random-init, full-width encoder (ResNet-101) and
                decoder (V=10,000; BN statistics re-estimated and <end>
                steered, see full_width_models), TF32 off, batch 8, k=5:
@@ -42,8 +44,13 @@ Phases, one line of output each:
                (the full table goes to build/profile_beam.txt);
 7. serve_fused_bf16  the same serving batch with beam_fn=beam_search_fused:
                encoder ms, beam ms, steps, K2 launches (1), captions/s, peak
-               memory; K2's own ms (CUDA events) against its bound and its
-               plain version's ms; and how many of the 64 captions equal
+               memory; K2's own ms (CUDA events; the card sleeps while the
+               host sets each launch up) against its bound and its
+               plain version's ms; then k2_phases, K2's own clock (one
+               read after each grid barrier) as us per phase summed over
+               the steps and per step, which must account for the CUDA
+               events' time of the same launch within 10 %; and how many
+               of the 64 captions equal
                the plain version's on the same bf16 grid: at least 60, or
                as many as the plain version on the card has equal to
                itself on the CPU if that is fewer (bf16 logits make this
@@ -58,15 +65,18 @@ Phases, one line of output each:
 9. profile_fused  one fused beam search under torch.profiler (table in
                build/profile_fused_beam.txt).
 
-Then one JSON line of every kernel's numbers, the card's name and power
-limit as nvidia-smi gives them, and last the line
+Then one JSON line of every kernel's numbers (K2's with its per-phase
+ms), the card's name and power limit as nvidia-smi gives them, and last
+the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 """
 
 import contextlib
 import copy
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +89,7 @@ F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
 IMAGES, BEAMS, PIX, ENC_DIM, ATT_DIM, DEC_DIM = 64, 5, 196, 2048, 512, 512
 EMBED, VOCAB = 512, 10000
 START_ID, END_ID = VOCAB - 3, VOCAB - 2
+SETTLE_CYCLES = 100_000_000  # about 50 ms of the card's clock
 
 
 def check(ok, what, *values):
@@ -99,9 +110,11 @@ def card_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, iters=20, warmup=3, flush=None):
+def time_ms(fn, iters=20, warmup=3, flush=None, settle=False):
     """Median ms of ``fn`` on the card, CUDA events around each call;
-    ``flush`` (a large tensor) is zeroed before each call to empty L2."""
+    ``flush`` (a large tensor) is zeroed before each call to empty L2.
+    With ``settle`` the card then sleeps while the host sets the call up,
+    so that the events time the card's work and not the host's."""
     import torch
 
     for _ in range(warmup):
@@ -110,6 +123,8 @@ def time_ms(fn, iters=20, warmup=3, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        if settle:
+            torch.cuda._sleep(SETTLE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -192,6 +207,26 @@ def phase_build():
     for name, (path, ptxas) in reports.items():
         print("ptxas {}:\n{}".format(name, ptxas), file=sys.stderr)
     log("build", seconds=round(seconds, 3), kernels=sorted(reports))
+    k2_ptxas(reports["fused_beam"][1])
+
+
+def k2_ptxas(report):
+    """ptxas's lines for the bf16 K2 (registers, stack, spills)."""
+    entry = None
+    lines = []
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = "fused_beam" in line and "nv_bfloat16" in line
+        elif entry:
+            lines.append(line.split(":", 1)[-1].strip())
+    if not report:
+        log("k2_ptxas", report="not built in this run (library cached)")
+        return
+    spills = [int(n) for line in lines
+              for n in re.findall(r"(\d+) bytes spill", line)]
+    check(lines and spills, "ptxas report of the bf16 K2", lines)
+    check(sum(spills) == 0, "bf16 K2 spills registers", lines)
+    log("k2_ptxas", report=lines, spill_bytes=sum(spills))
 
 
 def phase_k1(results):
@@ -239,9 +274,10 @@ def phase_k1(results):
     check(bf16_alpha_err <= 1e-5, "bf16 alpha error", bf16_alpha_err)
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    kernel_ms = time_ms(lambda: fused_attention(*args16, **kw), flush=flush)
+    kernel_ms = time_ms(lambda: fused_attention(*args16, **kw), flush=flush,
+                        settle=True)
     plain_ms = time_ms(lambda: fused_attention_reference(*args16, **kw),
-                       flush=flush)
+                       flush=flush, settle=True)
     bound_ms, bound_by = k1_bound_ms(args16, (ctx, alpha))
     results["fused_attention"] = dict(
         max_abs_err=bf16_ctx_err, ms=kernel_ms, plain_ms=plain_ms,
@@ -604,14 +640,17 @@ def phase_serve_fused_bf16(models, results):
     check(same_rand >= 60, "bf16 captions equal to the plain version on a "
           "random grid", same_rand)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    kernel_ms = time_ms(lambda: fused_beam._launch(ops, *search), iters=10,
-                        flush=flush)
+    # _start launches without reading the step count back, so nothing
+    # waits on the host between the events.
+    kernel_ms = time_ms(lambda: fused_beam._start(ops, *search), iters=10,
+                        flush=flush, settle=True)
     plain_ms = time_ms(lambda: fused_beam._search_plain(ops, *search),
                        iters=3, warmup=1, flush=flush)
     bound_ms, bound_by = k2_bound_ms(ops, BEAMS, steps)
+    phases = k2_phases(ops, search, flush)
     results["fused_beam"].update(launches=launches, ms=kernel_ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+                                 bound_by=bound_by, phase_ms=phases)
     log("serve_fused_bf16", images=IMAGES, beams=BEAMS, vocab=VOCAB,
         encoder_ms=(t1 - t0) * 1e3, beam_ms=(t2 - t1) * 1e3, steps=steps,
         k2_launches=launches, captions_per_s=IMAGES / (t2 - t0),
@@ -627,6 +666,46 @@ def phase_serve_fused_bf16(models, results):
         found=int(out["found"].sum()),
         seq_len=out["seq_len"].tolist())
     return captioner, grid
+
+
+def k2_phases(ops, search, flush):
+    """One K2 launch on the serving operands, L2 emptied before it: its
+    own clock's time per phase (summed over the steps and per step, in
+    us) against CUDA events around the same launch. The clock must
+    account for the launch within 10 %."""
+    import torch
+
+    from icd_tpu_torch.ops import fused_beam
+
+    flush.zero_()
+    # The card sleeps while the host sets the launch up, so the events
+    # time the launch and nothing of the host.
+    torch.cuda._sleep(SETTLE_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    raw = fused_beam._start(ops, *search)
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end)
+    raw["steps"] = int(raw["steps"].item())
+    steps = raw["steps"]
+    ms = fused_beam.phase_ms(raw["phase_ns"], steps)
+    stamps = raw["phase_ns"][:steps + 1].flatten().cpu()
+    stamps = torch.cat([stamps[:2], stamps[len(fused_beam.PHASES) + 1:]])
+    gaps = stamps.diff()
+    check(bool((gaps >= 0).all()), "K2 clock runs forward")
+    tick = 0  # the clock's resolution: the gcd of its steps
+    for gap in gaps.tolist():
+        tick = math.gcd(tick, gap)
+    check(abs(ms["total"] - event_ms) <= 0.1 * event_ms,
+          "K2 clock vs CUDA events", ms["total"], event_ms)
+    log("k2_phases", steps=steps, event_ms=event_ms,
+        clock_ms=ms["total"], clock_tick_ns=tick,
+        us={name: v * 1e3 for name, v in ms.items()},
+        us_per_step={name: ms[name] * 1e3 / steps
+                     for name in fused_beam.PHASES})
+    return ms
 
 
 def phase_beam_eval(captioner):

@@ -21,19 +21,20 @@
 //
 // Design. Three launches on the caller's stream, nothing allocated here.
 // Their device code is in attention_common.cuh, which K2 shares:
-//  1. decoder_products: the two products of h, one tiled f32 product of
-//     h (R, H) with [Wd; Wg] (A + D, H)^T, bias added, sigmoid on the
-//     gate columns. Writes att_dec (R, A) and gate (R, D) in f32.
+//  1. decoder_products: the two products of h, one tiled product of h
+//     (R, H) with [Wd; Wg] (A + D, H)^T, bias added, sigmoid on the
+//     gate columns; on the tensor cores in bf16 (mma.sync, cp.async),
+//     an FMA tile in f32. Writes att_dec (R, A) and gate (R, D) in f32.
 //  2. attention_scores: one block per (image, 16 pixels). The k att_dec
 //     rows of the image sit in shared memory; each att_enc row is read
-//     once and scored for all k beams.
-//  3. attention_context: one block per (image, 256 columns of D). Each
+//     once, in 16-byte words, and scored for all k beams.
+//  3. attention_context: one block per (image, 512 columns of D). Each
 //     block takes the softmax of the image's k score rows into shared
-//     memory, then each thread streams one enc column over P once and
-//     accumulates it for all k beams, and applies the gate.
+//     memory while the first pixels of its enc columns stream into a
+//     cp.async ring; each thread then sums its two columns over P once
+//     for all k beams and applies the gate.
 // The TPU kernel pads P to 128 and masks the pad with -inf; here every
 // loop stops at the real P, so there is nothing to mask.
-// A simple, correct kernel: no tensor cores, TMA or cp.async yet.
 
 #include "attention_common.cuh"
 
@@ -41,33 +42,46 @@ namespace {
 
 using namespace icd;
 
+constexpr int kPixelsPerChunk = 16;
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decoder_products(const T* h, const T* wd, const T* bd, const T* wg,
                      const T* bg, float* att_dec, float* gate, int rows,
                      int hdim, int adim, int ddim) {
-  __shared__ float smem[kGemmSmemFloats];
-  decoder_products_tile<T>(blockIdx.y * kTile, blockIdx.x * kTile, h, wd, bd,
-                           wg, bg, att_dec, gate, rows, hdim, adim, ddim,
-                           smem);
+  extern __shared__ __align__(16) char smem[];
+  decoder_products_tile<T>(blockIdx.y * HShape::BM, blockIdx.x * HShape::BN,
+                           h, wd, bd, wg, bg, att_dec, gate, rows, hdim, adim,
+                           ddim, smem);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_scores(const T* att_enc, const float* att_dec, const T* wf,
                      const T* bf, float* scores, int k, int pix, int adim) {
-  extern __shared__ float smem[];
-  attention_scores_chunk<T>(blockIdx.y, blockIdx.x, att_enc, att_dec, wf, bf,
-                            scores, k, pix, adim, smem);
+  extern __shared__ __align__(16) char smem[];
+  const int p0 = blockIdx.x * kPixelsPerChunk;
+  attention_scores_chunk<T>(blockIdx.y, p0, min(pix, p0 + kPixelsPerChunk),
+                            att_enc, att_dec, wf, bf, scores, k, pix, adim,
+                            reinterpret_cast<float*>(smem));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_context(const T* enc, const float* scores, const float* gate,
                       T* ctx, float* alpha, int k, int pix, int ddim) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) char smem[];
   attention_context_chunk<T>(blockIdx.y, blockIdx.x, enc, scores, gate, ctx,
                              alpha, k, pix, ddim, smem);
+}
+
+// Dynamic shared memory of `kernel`: above 48 KB only once allowed.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 template <typename T>
@@ -78,24 +92,32 @@ cudaError_t launch(const void* enc, const void* att_enc, const void* h,
                    float* alpha, int images, int k, int pix, int ddim,
                    int adim, int hdim, cudaStream_t stream) {
   const int rows = images * k;
-  const dim3 pgrid((adim + ddim + kTile - 1) / kTile, (rows + kTile - 1) / kTile);
-  decoder_products<T><<<pgrid, kThreads, 0, stream>>>(
+  const dim3 pgrid((adim + ddim + HShape::BN - 1) / HShape::BN,
+                   (rows + HShape::BM - 1) / HShape::BM);
+  const size_t psmem = product_smem<T, HShape>();
+  cudaError_t err = allow_smem(decoder_products<T>, psmem);
+  if (err != cudaSuccess) return err;
+  decoder_products<T><<<pgrid, kThreads, psmem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(wd),
       static_cast<const T*>(bd), static_cast<const T*>(wg),
       static_cast<const T*>(bg), att_dec, gate, rows, hdim, adim, ddim);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const dim3 sgrid((pix + kPixelsPerChunk - 1) / kPixelsPerChunk, images);
   const size_t ssmem = (size_t)(k + 1) * adim * sizeof(float);
+  err = allow_smem(attention_scores<T>, ssmem);
+  if (err != cudaSuccess) return err;
   attention_scores<T><<<sgrid, kThreads, ssmem, stream>>>(
       static_cast<const T*>(att_enc), att_dec, static_cast<const T*>(wf),
       static_cast<const T*>(bf), scores, k, pix, adim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const dim3 cgrid((ddim + kThreads - 1) / kThreads, images);
-  const size_t csmem = (size_t)k * pix * sizeof(float);
+  const dim3 cgrid((ddim + kCtxCols - 1) / kCtxCols, images);
+  const size_t csmem = context_smem<T>(k, pix);
+  err = allow_smem(attention_context<T>, csmem);
+  if (err != cudaSuccess) return err;
   attention_context<T><<<cgrid, kThreads, csmem, stream>>>(
       static_cast<const T*>(enc), scores, gate, static_cast<T*>(ctx), alpha,
       k, pix, ddim);
@@ -104,9 +126,10 @@ cudaError_t launch(const void* enc, const void* att_enc, const void* h,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launches (0 on success). Scratch att_dec (R, A), gate (R, D) and
-// scores (R, P) are f32 buffers the caller allocates, R = images * k.
+// dtype: 0 = float32, 1 = bfloat16. Returns the first error of the
+// launches' set-up or cudaGetLastError() after them (0 on success).
+// Scratch att_dec (R, A), gate (R, D) and scores (R, P) are f32 buffers
+// the caller allocates, R = images * k.
 extern "C" int icd_fused_attention(
     const void* enc, const void* att_enc, const void* h, const void* wd,
     const void* bd, const void* wf, const void* bf, const void* wg,

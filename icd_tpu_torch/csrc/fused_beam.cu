@@ -9,7 +9,7 @@
 //   x2            = (gate * sum_P alpha enc) in T
 //   gates         = emb[word] Wi[:, :E]^T + x2 Wi[:, E:]^T + hc Wh^T + b_sum
 //   c, h          = LSTM cell (i, f, g, o), f32
-//   logits        = h_T Wfc^T + bfc, rounded to T, then f32
+//   logits        = h_T Wfc^T + bfc, rounded to T (and so stored)
 //   cand          = (logits - logsumexp) + cum, NEG_INF where the row is
 //                   not live (step 1: row 0 only; then rows < k_active)
 //   then the flat top-k of each image's k * V candidates in lax.top_k
@@ -18,10 +18,11 @@
 //   rank order, and the permutation of h, c and the sequences.
 // Outputs: the raw per-step alphas (S, B, k, P), parent pointers (S, B, k),
 // best sequence (B, S), meta (B, 4) = best_len, best_step, best_parent,
-// found, and the number of steps run. The winner's alpha trail is
-// backtracked outside, as on the TPU (fused_beam.py:533-571). T is the
-// grid's type (f32 or bf16); c and cum stay f32. Every use of h takes it
-// rounded to T, so h is kept only so rounded (hc).
+// found, the number of steps run, and the phase clock (below). The
+// winner's alpha trail is backtracked outside, as on the TPU
+// (fused_beam.py:533-571). T is the grid's type (f32 or bf16); c, the
+// scores and cum stay f32. Every use of h takes it rounded to T, so h is
+// kept only so rounded (hc).
 //
 // Bound. At batch 64, k = 5, P = 196, D = 2048, A = H = E = 512,
 // V = 10,000 in bf16, no chip memory holds enc and att_enc (51.4 + 12.8
@@ -32,26 +33,42 @@
 // by bytes, about 20 us a step.
 //
 // Design. One persistent cooperative launch (cudaLaunchCooperativeKernel):
-// as many blocks as fit on the card at once, each walking a share of the
-// work items of every phase, with grid.sync() between phases:
+// two blocks on each SM, each walking a share of the work items of every
+// phase, with grid.sync() between phases:
 //   init  the state, from h0, c0 (one row per image) and the start token;
 //   A     the products of h, one tiled product with [Wd; Wg];
-//   B1    attention scores per (image, 16 pixels), k beams per att_enc read;
-//   B2    softmax, context and gate per (image, 256 columns of D), k beams
+//   B1    attention scores per (image, run of pixels), k beams per
+//         att_enc read, one run per block;
+//   B2    softmax, context and gate per (image, 512 columns of D), k beams
 //         per enc read (A, B1 and B2 are K1's code, attention_common.cuh);
-//   C     the LSTM gates, one tiled product over [emb | x2 | hc] and
-//         [Wi | Wh], the embedding read in place by word id;
-//   C2    the cell;
+//   C     the LSTM gates' sums, one tiled product over [emb | x2 | hc] and
+//         [Wi | Wh] in kCParts parts of its depth, the embedding read in
+//         place by word id;
+//   C2    the cell, adding the parts in order;
 //   D     the fc product, logits rounded to T;
-//   E     one block per image: log-softmax of its k rows, its top-k, the
+//   E     one block per image: log-softmax of its k rows (copied to
+//         shared memory in one read where they fit), its top-k, the
 //         running best, packing, and the permutation of its rows.
+// In bf16 the products run on the tensor cores (mma.sync, cp.async ring;
+// attention_common.cuh). What bounds them is what their tiles read from
+// L2 (each row tile reads the weights, each column band the activations),
+// so the large products take 160-row tiles: C's 2 x 32 tiles in 4 parts
+// (256 work items for 264 blocks; the parts cost 10.5 MB of f32 sums a
+// step, against about 100 MB of L2 reads saved). D takes 5 x 157 tiles
+// of 64 x 64 (three even waves), A 5 x 80 of 64 x 32. Tiles of one column band go to neighbouring
+// blocks, so a weight tile leaves memory once a step and the other row
+// tiles find it in L2. B1 and B2 stream the grids in 16-byte words, many
+// in flight a block.
 // Before each step every block reads all k_active after the same barrier,
 // so all blocks leave the loop at the same step. Each phase reads only
 // buffers written before the last barrier, and in E each block touches
 // only its own image's rows, reading h, c from hnew_c, c_new: no buffer
-// is written while another block reads it. Products are shared-memory FMA
-// tiles with f32 accumulation: a simple, correct kernel, no tensor cores,
-// TMA or cp.async yet; it reads the weights from L2 or memory every step.
+// is written while another block reads it.
+//
+// The phase clock. Block 0's thread 0 reads %globaltimer (ns; it ticks
+// every 32 ns on the H100) at the start of the launch and after each grid
+// barrier, into phase_ns (S, kPhases + 1): row 0 holds the start and the
+// end of init, row s the start of step s and then the end of each phase.
 
 #include <cooperative_groups.h>
 #include <limits.h>
@@ -67,8 +84,29 @@ namespace {
 using namespace icd;
 
 constexpr float kNegInf = -1e9f;  // candidate mask, beam.py's NEG_INF
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocksPerSm = 4;
+constexpr int kBlocksPerSm = 2;
+constexpr int kPhases = 7;  // A, B1, B2, C, C2, D, E: grid barriers a step
+// Shared memory a block may take with two blocks on an SM (228 KB an SM,
+// 1 KB of it kept per block).
+constexpr size_t kSmemBudget = 115712;
+// Tiles of the LSTM gates (in kCParts parts of their depth, whose sums
+// the cell adds) and of the fc product, in bf16; f32 takes 64-row FMA
+// tiles of the same widths and one part.
+using CShape = Shape<160, 64, 2, 2>;
+using DShape = Shape<64, 64, 4, 5>;
+constexpr int kCParts = 4;
+
+template <typename T>
+__host__ __device__ constexpr int c_parts() {
+  return is_f32<T>() ? 1 : kCParts;
+}
+
+// The card's nanosecond clock, the same on every SM.
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
 
 struct Params {
   // Inputs, in T unless noted; weights in nn.Linear layout (out, in).
@@ -94,16 +132,17 @@ struct Params {
   int* best_seq;   // (B, S)
   int* meta;       // (B, 4)
   int* steps;      // (1)
+  long long* phase_ns;  // (S, kPhases + 1) the phase clock
   // Scratch, carved from the caller's workspace.
   float* c;        // (R, H) state
   float* c_new;    // (R, H) this step's cell output, before packing
   float* att_dec;  // (R, A)
   float* gate;     // (R, D)
   float* scores;   // (R, P)
-  float* gates;    // (R, 4H)
-  float* logits;   // (R, V)
+  float* gates;    // (parts, R, 4H) the LSTM gates' sums, part by part
   float* cum;      // (R) running scores
   float* best_score;  // (B)
+  void* logits;    // (R, V) T
   void* hc;        // (R, H) T, h rounded: every product's only use of h
   void* hnew_c;    // (R, H) T, this step's h rounded, before packing
   void* x2;        // (R, D) T, gated context
@@ -112,11 +151,12 @@ struct Params {
   int* kact;       // (B) live beams of each image
   int images, k, pix, ddim, adim, hdim, edim, vocab, max_steps;
   int start_id, end_id;
+  int stage_logits;  // E copies its image's logits to shared memory
 };
 
 // Lays the scratch buffers out in `base` (nullptr: only count), each
 // aligned to 256 bytes; returns the bytes used.
-size_t carve(Params& p, char* base, size_t elt) {
+size_t carve(Params& p, char* base, size_t elt, int parts) {
   size_t off = 0;
   auto take = [&](size_t bytes) -> char* {
     off = (off + 255) & ~size_t(255);
@@ -131,10 +171,10 @@ size_t carve(Params& p, char* base, size_t elt) {
   p.att_dec = (float*)take(r * p.adim * f);
   p.gate = (float*)take(r * p.ddim * f);
   p.scores = (float*)take(r * p.pix * f);
-  p.gates = (float*)take(r * 4 * h * f);
-  p.logits = (float*)take(r * p.vocab * f);
+  p.gates = (float*)take(parts * r * 4 * h * f);
   p.cum = (float*)take(r * f);
   p.best_score = (float*)take(p.images * f);
+  p.logits = take(r * p.vocab * elt);
   p.hc = take(r * h * elt);
   p.hnew_c = take(r * h * elt);
   p.x2 = take(r * p.ddim * elt);
@@ -145,19 +185,44 @@ size_t carve(Params& p, char* base, size_t elt) {
 }
 
 struct SelectShared {
-  float lse[kMaxRows], cum[kMaxRows], top_v[kMaxRows], ord_score[kMaxRows];
+  float own[kMaxRows][kThreads];  // each thread's largest logit of a row
+  float lse[kMaxRows], cum[kMaxRows], top_v[kMaxRows];
   int top_i[kMaxRows], ord_prev[kMaxRows], ord_word[kMaxRows];
+  float red[kWarps][kMaxRows];
+  float warp_best[kWarps];
   float red_v[kWarps];
   int red_i[kWarps];
   int improved, best_parent, best_word;
   // followed by the image's k sequences, (k, S) ints
 };
 
-size_t smem_bytes(const Params& p) {
-  const size_t f = sizeof(float);
-  return std::max({kGemmSmemFloats * f, (size_t)(p.k + 1) * p.adim * f,
-                   (size_t)p.k * p.pix * f,
-                   sizeof(SelectShared) + (size_t)p.k * (p.max_steps + 1) * 4});
+// Where the LSTM-gates tile keeps its word ids: past its ring.
+template <typename T>
+__host__ __device__ constexpr size_t c_words_at() {
+  return product_smem<T, CShape>();
+}
+
+// Shared memory of phase E: SelectShared, the image's k sequences, and
+// with `logits` its k rows of logits.
+__host__ __device__ size_t select_smem(const Params& p, size_t elt,
+                                      bool logits) {
+  const size_t head =
+      (sizeof(SelectShared) + (size_t)p.k * (p.max_steps + 1) * 4 + 15) / 16 *
+      16;
+  return head + (logits ? (size_t)p.k * p.vocab * elt : 0);
+}
+
+// Shared memory of the launch (the most any phase takes); sets
+// p.stage_logits where E's logits fit in the two-blocks-an-SM budget.
+template <typename T>
+size_t smem_bytes(Params& p) {
+  p.stage_logits = select_smem(p, sizeof(T), true) <= kSmemBudget;
+  return std::max({product_smem<T, HShape>(),
+                   c_words_at<T>() + TileOf<T, CShape>::BM * sizeof(int),
+                   product_smem<T, DShape>(),
+                   (size_t)(p.k + 1) * p.adim * sizeof(float),
+                   context_smem<T>(p.k, p.pix),
+                   select_smem(p, sizeof(T), p.stage_logits)});
 }
 
 // lax.top_k's order: value descending, then index ascending.
@@ -166,49 +231,150 @@ __device__ __forceinline__ bool ranks_before(float av, int ai, float bv,
   return av > bv || (av == bv && ai < bi);
 }
 
-// Runs f(row0, col0) for this block's share of the 64 x 64 tiles of a
-// (rows, cols) product; tiles of one column band go to neighbouring
-// blocks, so a weight tile is read from memory once and from L2 after.
+// Runs f(row0, col0, part) for this block's share of the bm x bn tiles
+// of a (rows, cols) product, each in `parts` parts of its depth; tiles of
+// one column band and part go to neighbouring blocks, so a weight tile
+// is read from memory once and from L2 after.
 template <class F>
-__device__ void for_tiles(int rows, int cols, F f) {
-  const int rt = (rows + kTile - 1) / kTile;
-  const int n = rt * ((cols + kTile - 1) / kTile);
-  for (int t = blockIdx.x; t < n; t += gridDim.x)
-    f((t % rt) * kTile, (t / rt) * kTile);
+__device__ void for_tiles(int rows, int cols, int bm, int bn, int parts,
+                          F f) {
+  const int rt = (rows + bm - 1) / bm, bands = (cols + bn - 1) / bn;
+  for (int t = blockIdx.x; t < rt * bands * parts; t += gridDim.x) {
+    const int band = t / rt % bands;
+    f((t % rt) * bm, band * bn, t / rt / bands);
+  }
+}
+
+// f(v, x) for this thread's share of the n values x[v] of a row, in
+// order: 16 bytes at a time where `vec` (the row is made of whole 16-byte
+// words), else one value at a time.
+template <typename T, class F>
+__device__ __forceinline__ void row_values(const T* x, int n, bool vec, F f) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec) {
+    for (int v0 = threadIdx.x * kVec; v0 < n; v0 += kThreads * kVec) {
+      float xs[kVec];
+      unpack16<T>(*reinterpret_cast<const uint4*>(x + v0), xs);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) f(v0 + e, xs[e]);
+    }
+  } else {
+    for (int v = threadIdx.x; v < n; v += kThreads) f(v, to_float(x[v]));
+  }
+}
+
+// Keeps (val, idx), sorted in lax.top_k's order, the best kMaxRows of
+// the candidates offered; constant indices keep the lists in registers.
+__device__ __forceinline__ void keep_best(float (&val)[kMaxRows],
+                                          int (&idx)[kMaxRows], float cand,
+                                          int f) {
+  if (!ranks_before(cand, f, val[kMaxRows - 1], idx[kMaxRows - 1])) return;
+  val[kMaxRows - 1] = cand;
+  idx[kMaxRows - 1] = f;
+#pragma unroll
+  for (int i = kMaxRows - 1; i > 0; --i) {
+    if (ranks_before(val[i], idx[i], val[i - 1], idx[i - 1])) {
+      const float tv = val[i];
+      val[i] = val[i - 1];
+      val[i - 1] = tv;
+      const int ti = idx[i];
+      idx[i] = idx[i - 1];
+      idx[i - 1] = ti;
+    }
+  }
 }
 
 // Phase E for one image (fused_beam.py:236-384).
 template <typename T>
 __device__ void select_image(int img, int step, const Params& p,
-                             float* smem) {
+                             char* smem) {
+  constexpr int kVec = 16 / sizeof(T);
   SelectShared& sh = *reinterpret_cast<SelectShared*>(smem);
   int* old_seqs = reinterpret_cast<int*>(&sh + 1);
   const int k = p.k, v_n = p.vocab, h_n = p.hdim, s_n = p.max_steps + 1;
   const int row0 = img * k;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* logits = static_cast<const T*>(p.logits) + (size_t)row0 * v_n;
   __syncthreads();
   const int active = p.kact[img];  // read by all before thread 0 rewrites it
-
-  // Log-softmax terms of the image's k rows, one warp a row.
-  if (warp < k) {
-    const float* x = p.logits + (size_t)(row0 + warp) * v_n;
-    float m = -INFINITY;
-    for (int v = lane; v < v_n; v += 32) m = fmaxf(m, x[v]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int v = lane; v < v_n; v += 32) s += expf(x[v] - m);
-    s = warp_sum(s);
-    if (lane == 0) {
-      sh.lse[warp] = m + logf(s);
-      sh.cum[warp] = p.cum[row0 + warp];
-    }
-  }
+  // Rows j < live are live: step 1 row 0, then the active ones.
+  const int live = step == 1 ? 1 : active;
+  // What later parts read, loaded now so that the loads overlap.
+  const float best_before = threadIdx.x == 0 ? p.best_score[img] : 0.f;
+  if (threadIdx.x < k) sh.cum[threadIdx.x] = p.cum[row0 + threadIdx.x];
   for (int i = threadIdx.x; i < k * s_n; i += kThreads)
     old_seqs[i] = p.seqs[(size_t)row0 * s_n + i];
+  if (p.stage_logits) {  // the live rows, one read, all in flight
+    T* staged = reinterpret_cast<T*>(smem + select_smem(p, 0, false));
+    const uint64_t policy = l2_evict_first();
+    for (int i = threadIdx.x * kVec; i < live * v_n; i += kThreads * kVec)
+      stage16(staged + i, logits + i, live * v_n - i, policy);
+    cp_async_commit();  // wait_group waits only for committed copies
+    cp_async_wait<0>();
+    __syncthreads();
+    logits = staged;
+  }
+  const bool vec = v_n % kVec == 0 && aligned16(logits);
+
+  // Log-softmax terms of the live rows, a row at a time (rolled loops:
+  // less code to fetch each step): block-wide max, then sum, each warp's
+  // share summed by warp_sum and the warps' in order.
+  for (int j = 0; j < live; ++j) {
+    float mj = -INFINITY;
+    row_values(logits + (size_t)j * v_n, v_n, vec,
+               [&](int, float x) { mj = fmaxf(mj, x); });
+    sh.own[j][threadIdx.x] = mj;
+    mj = warp_max(mj);
+    if (lane == 0) sh.red[warp][j] = mj;
+  }
+  __syncthreads();
+  if (threadIdx.x < live) {
+    float mj = sh.red[0][threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) mj = fmaxf(mj, sh.red[w][threadIdx.x]);
+    sh.lse[threadIdx.x] = mj;  // the max, for now
+  }
+  __syncthreads();
+  for (int j = 0; j < live; ++j) {
+    float sj = 0.f;
+    const float mj = sh.lse[j];
+    row_values(logits + (size_t)j * v_n, v_n, vec,
+               [&](int, float x) { sj += expf(x - mj); });
+    sj = warp_sum(sj);
+    if (lane == 0) sh.red[warp][j] = sj;
+  }
+  __syncthreads();
+  if (threadIdx.x < live) {
+    float sj = sh.red[0][threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) sj += sh.red[w][threadIdx.x];
+    sh.lse[threadIdx.x] += logf(sj);
+  }
   __syncthreads();
 
-  // Each thread keeps the best kMaxRows of the candidates it scans,
-  // sorted; a list of fixed length keeps the arrays in registers.
+  // A cutoff under the k best candidates: a candidate is monotone in its
+  // logit within a row, so each thread's best is (own max - lse) + cum
+  // of one of its rows; the k-th largest of the warps' bests belongs to k
+  // distinct candidates, so no candidate below it can be among the k
+  // best. Only candidates at or above it enter a thread's list, which
+  // keeps the lists' inserts (and the warps' divergence) rare.
+  float best = -INFINITY;
+  for (int j = 0; j < live; ++j)
+    best = fmaxf(best, (sh.own[j][threadIdx.x] - sh.lse[j]) + sh.cum[j]);
+  best = warp_max(best);
+  if (lane == 0) sh.warp_best[warp] = best;
+  __syncthreads();
+  float cutoff = -INFINITY;
+  for (int i = 0; i < kWarps; ++i) {
+    int above = 0;
+    for (int w = 0; w < kWarps; ++w)
+      above += sh.warp_best[w] >= sh.warp_best[i];
+    if (above >= k) cutoff = fmaxf(cutoff, sh.warp_best[i]);
+  }
+
+  // Each thread keeps the best kMaxRows of the candidates it scans. A row
+  // that is not live offers NEG_INF everywhere, so only its k lowest
+  // indices can be chosen (NEG_INF ties go to the lower index, and the
+  // live rows' candidates, running scores, lie far above NEG_INF): thread
+  // 0 offers those k, and no one reads the row.
   float val[kMaxRows];
   int idx[kMaxRows];
 #pragma unroll
@@ -217,27 +383,14 @@ __device__ void select_image(int img, int step, const Params& p,
     idx[i] = INT_MAX;
   }
   for (int j = 0; j < k; ++j) {
-    const bool live = step == 1 ? j == 0 : j < active;
-    const float* x = p.logits + (size_t)(row0 + j) * v_n;
-    const float lse = sh.lse[j], cum = sh.cum[j];
-    for (int v = threadIdx.x; v < v_n; v += kThreads) {
-      const float cand = live ? (x[v] - lse) + cum : kNegInf;
-      const int f = j * v_n + v;
-      if (ranks_before(cand, f, val[kMaxRows - 1], idx[kMaxRows - 1])) {
-        val[kMaxRows - 1] = cand;
-        idx[kMaxRows - 1] = f;
-#pragma unroll
-        for (int i = kMaxRows - 1; i > 0; --i) {
-          if (ranks_before(val[i], idx[i], val[i - 1], idx[i - 1])) {
-            const float tv = val[i];
-            val[i] = val[i - 1];
-            val[i - 1] = tv;
-            const int ti = idx[i];
-            idx[i] = idx[i - 1];
-            idx[i - 1] = ti;
-          }
-        }
-      }
+    if (j < live) {
+      const float lse = sh.lse[j], cum = sh.cum[j];
+      row_values(logits + (size_t)j * v_n, v_n, vec, [&](int v, float x) {
+        const float cand = (x - lse) + cum;
+        if (cand >= cutoff) keep_best(val, idx, cand, j * v_n + v);
+      });
+    } else if (threadIdx.x == 0) {
+      for (int v = 0; v < k; ++v) keep_best(val, idx, kNegInf, j * v_n + v);
     }
   }
 
@@ -282,53 +435,59 @@ __device__ void select_image(int img, int step, const Params& p,
     }
   }
 
-  // Completion, running best and packing: k values, one thread.
-  if (threadIdx.x == 0) {
-    int prev[kMaxRows], word[kMaxRows], order[kMaxRows];
-    float score[kMaxRows], comp[kMaxRows];
-    bool surv[kMaxRows];
-    bool any_fin = false;
-    for (int j = 0; j < k; ++j) {
-      prev[j] = sh.top_i[j] / v_n;
-      word[j] = sh.top_i[j] - prev[j] * v_n;
-      const bool valid = j < active;  // active == k at step 1
-      const bool fin = valid && word[j] == p.end_id;
-      score[j] = valid ? sh.top_v[j] : kNegInf;
-      comp[j] = fin ? score[j] : kNegInf;
-      surv[j] = valid && !fin;
-      any_fin |= fin;
+  // Completion, running best and packing: warp 0, lane j the j-th of the
+  // k chosen (in registers; a per-thread array here would live in local
+  // memory, which the large shared-memory carve-out leaves uncached).
+  if (warp == 0) {
+    const bool mine = lane < k;
+    const int top = mine ? sh.top_i[lane] : 0;
+    const int prev = top / v_n, word = top - prev * v_n;
+    const bool valid = lane < active;  // active == k at step 1
+    const bool fin = valid && word == p.end_id;
+    const float score = valid ? sh.top_v[lane] : kNegInf;
+    const bool surv = valid && !fin;
+    const bool any_fin = __any_sync(0xffffffffu, fin);
+    // The first maximum of the completions: value descending, lane ascending.
+    float cv = !mine ? -INFINITY : fin ? score : kNegInf;
+    int cl = lane;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, cv, o);
+      const int ol = __shfl_xor_sync(0xffffffffu, cl, o);
+      if (ov > cv || (ov == cv && ol < cl)) {
+        cv = ov;
+        cl = ol;
+      }
     }
-    int comp_best = 0;  // the first maximum
-    for (int j = 1; j < k; ++j)
-      if (comp[j] > comp[comp_best]) comp_best = j;
-    const bool improved = any_fin && comp[comp_best] > p.best_score[img];
-    int* meta = p.meta + (size_t)img * 4;
-    if (improved) {
-      p.best_score[img] = comp[comp_best];
-      meta[0] = step + 1;
-      meta[1] = step;
-      meta[2] = prev[comp_best];
+    const int best_prev = __shfl_sync(0xffffffffu, prev, cl);
+    const int best_word = __shfl_sync(0xffffffffu, word, cl);
+    // Survivors first, then the rest, each in top-k rank order.
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned survivors = __ballot_sync(0xffffffffu, mine && surv);
+    const unsigned others = __ballot_sync(0xffffffffu, mine && !surv);
+    const int n = __popc(survivors);
+    if (lane == 0) {
+      const bool improved = any_fin && cv > best_before;
+      int* meta = p.meta + (size_t)img * 4;
+      if (improved) {
+        p.best_score[img] = cv;
+        meta[0] = step + 1;
+        meta[1] = step;
+        meta[2] = best_prev;
+      }
+      if (any_fin) meta[3] = 1;
+      sh.improved = improved;
+      sh.best_parent = best_prev;
+      sh.best_word = best_word;
+      p.kact[img] = n;
     }
-    if (any_fin) meta[3] = 1;
-    sh.improved = improved;
-    sh.best_parent = prev[comp_best];
-    sh.best_word = word[comp_best];
-
-    int n = 0;
-    for (int j = 0; j < k; ++j)
-      if (surv[j]) order[n++] = j;
-    p.kact[img] = n;
-    for (int j = 0; j < k; ++j)
-      if (!surv[j]) order[n++] = j;
-    int* parent = p.parent + ((size_t)step * p.images + img) * k;
-    for (int j = 0; j < k; ++j) {
-      const int o = order[j];
-      sh.ord_prev[j] = prev[o];
-      sh.ord_word[j] = word[o];
-      sh.ord_score[j] = score[o];
-      parent[j] = prev[o];
-      p.words[row0 + j] = word[o];
-      p.cum[row0 + j] = score[o];
+    if (mine) {
+      const int at = surv ? __popc(survivors & below)
+                          : n + __popc(others & below);
+      sh.ord_prev[at] = prev;
+      sh.ord_word[at] = word;
+      p.parent[((size_t)step * p.images + img) * k + at] = prev;
+      p.words[row0 + at] = word;
+      p.cum[row0 + at] = score;
     }
   }
   __syncthreads();
@@ -355,8 +514,9 @@ __device__ void select_image(int img, int step, const Params& p,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) fused_beam(Params p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    fused_beam(Params p) {
+  extern __shared__ __align__(16) char smem[];
   cg::grid_group grid = cg::this_grid();
   const int b_n = p.images, k = p.k, r_n = b_n * k, h_n = p.hdim;
   const int s_n = p.max_steps + 1, a_n = p.adim, d_n = p.ddim;
@@ -382,16 +542,24 @@ __global__ void __launch_bounds__(kThreads, 2) fused_beam(Params p) {
   T* hc = static_cast<T*>(p.hc);
   T* hnew_c = static_cast<T*>(p.hnew_c);
   T* x2 = static_cast<T*>(p.x2);
+  T* logits = static_cast<T*>(p.logits);
   float* c_new = p.c_new;
   float* c = p.c;
-  float* gates = p.gates;
-  float* logits = p.logits;
   const int* words = p.words;
+  // The operands as bf16, for the tensor-core tiles' runs (unused in f32).
+  auto b16 = [](const void* q) {
+    return static_cast<const __nv_bfloat16*>(q);
+  };
+  auto stamp = [&](int row, int col) {
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      p.phase_ns[row * (kPhases + 1) + col] = global_ns();
+  };
+  stamp(0, 0);
 
   // init (fused_beam.py:141-158)
   for (size_t i = gtid; i < (size_t)r_n * h_n; i += gsize) {
     const size_t src = i / h_n / k * h_n + i % h_n;  // row i / H, image row / k
-    p.c[i] = to_float(c0[src]);
+    c[i] = to_float(c0[src]);
     hc[i] = h0[src];
   }
   for (size_t i = gtid; i < (size_t)r_n * s_n; i += gsize)
@@ -414,41 +582,70 @@ __global__ void __launch_bounds__(kThreads, 2) fused_beam(Params p) {
     meta[3] = 0;  // found
   }
   grid.sync();
+  stamp(0, 1);
+
+  // B1's work items: each image's pixels in as many runs as there are
+  // blocks per image (at least one).
+  const int runs = max(1, (int)gridDim.x / b_n);
+  const int run_len = (p_n + runs - 1) / runs;
+  const int pruns = (p_n + run_len - 1) / run_len;
+  const int ed = e_n + d_n, g_n = 4 * h_n;
+  // [emb | x2 | hc] and [Wi | Wh] with each segment padded to whole runs
+  // of 8 (the tensor-core tiles' depth; zeros in the padding).
+  const int e8 = round8(e_n), d8 = round8(d_n);
+  const int cpad = e8 + d8 + round8(h_n);
+  const int spread = max(1, (int)gridDim.x / (kBlocksPerSm * b_n));
+  using CTile = TileOf<T, CShape>;
+  using DTile = TileOf<T, DShape>;
+  constexpr int parts = c_parts<T>();
 
   int step = 1;
   for (; step <= p.max_steps; ++step) {
     int live = 0;
     for (int i = threadIdx.x; i < b_n; i += kThreads) live |= p.kact[i] > 0;
     if (!__syncthreads_or(live)) break;  // the same answer in every block
+    stamp(step, 0);
 
     // A: att_dec and gate.
-    for_tiles(r_n, a_n + d_n, [&](int row0, int col0) {
-      decoder_products_tile<T>(row0, col0, hc, wd, bd, wg, bg, p.att_dec,
-                               p.gate, r_n, h_n, a_n, d_n, smem);
-    });
+    for_tiles(r_n, a_n + d_n, HShape::BM, HShape::BN, 1,
+              [&](int row0, int col0, int) {
+                decoder_products_tile<T>(row0, col0, hc, wd, bd, wg, bg,
+                                         p.att_dec, p.gate, r_n, h_n, a_n,
+                                         d_n, smem);
+              });
     grid.sync();
+    stamp(step, 1);
 
     // B1: scores.
-    const int pchunks = (p_n + kPixelsPerChunk - 1) / kPixelsPerChunk;
-    for (int it = blockIdx.x; it < b_n * pchunks; it += gridDim.x)
-      attention_scores_chunk<T>(it / pchunks, it % pchunks, att_enc,
-                                p.att_dec, wf, bf, p.scores, k, p_n, a_n,
-                                smem);
+    for (int it = blockIdx.x; it < b_n * pruns; it += gridDim.x) {
+      const int p0 = (it % pruns) * run_len;
+      attention_scores_chunk<T>(it / pruns, p0, min(p_n, p0 + run_len),
+                                att_enc, p.att_dec, wf, bf, p.scores, k, p_n,
+                                a_n, reinterpret_cast<float*>(smem));
+    }
     grid.sync();
+    stamp(step, 2);
 
     // B2: softmax, context, gate; the step's raw alphas.
-    const int dchunks = (d_n + kThreads - 1) / kThreads;
+    const int dchunks = (d_n + kCtxCols - 1) / kCtxCols;
     float* alpha = p.alpha + (size_t)step * r_n * p_n;
     for (int it = blockIdx.x; it < b_n * dchunks; it += gridDim.x)
       attention_context_chunk<T>(it / dchunks, it % dchunks, enc, p.scores,
                                  p.gate, x2, alpha, k, p_n, d_n, smem);
     grid.sync();
+    stamp(step, 3);
 
-    // C: LSTM gates over [emb | x2 | hc] (E + D + H deep).
-    const int ed = e_n + d_n, g_n = 4 * h_n;
-    for_tiles(r_n, g_n, [&](int row0, int col0) {
-      gemm_tile(
-          row0, col0, r_n, g_n, ed + h_n,
+    // C: the LSTM gates' sums over [emb | x2 | hc] (E + D + H deep), part
+    // by part of the depth.
+    for_tiles(r_n, g_n, CTile::BM, CTile::BN, parts,
+              [&](int row0, int col0, int part) {
+      // The tile's word ids, loaded once (product_tile's first barrier
+      // publishes them), for the runs of its embedding rows.
+      int* tile_words = reinterpret_cast<int*>(smem + c_words_at<T>());
+      for (int i = threadIdx.x; i < CTile::BM; i += kThreads)
+        tile_words[i] = row0 + i < r_n ? words[row0 + i] : 0;
+      const float* acc = product_tile<T, CShape>(
+          row0, col0, r_n, g_n, ed + h_n, cpad, part, parts,
           [=](int r, int kk) {
             if (kk < e_n) return to_float(emb[(size_t)words[r] * e_n + kk]);
             if (kk < ed) return to_float(x2[(size_t)r * d_n + kk - e_n]);
@@ -458,44 +655,90 @@ __global__ void __launch_bounds__(kThreads, 2) fused_beam(Params p) {
             return kk < ed ? to_float(wi[(size_t)n * ed + kk])
                            : to_float(wh[(size_t)n * h_n + kk - ed]);
           },
-          [=](int r, int n, float acc) {
-            gates[(size_t)r * g_n + n] = acc + b_sum[n];
+          [=](int r, int kk) {
+            if (kk < e8)
+              return Run{b16(emb) + (size_t)tile_words[r - row0] * e_n + kk,
+                         e_n - kk};
+            kk -= e8;
+            if (kk < d8) return Run{b16(x2) + (size_t)r * d_n + kk, d_n - kk};
+            kk -= d8;
+            return Run{b16(hc) + (size_t)r * h_n + kk, h_n - kk};
+          },
+          [=](int n, int kk) {
+            if (kk < e8) return Run{b16(wi) + (size_t)n * ed + kk, e_n - kk};
+            kk -= e8;
+            if (kk < d8)
+              return Run{b16(wi) + (size_t)n * ed + e_n + kk, d_n - kk};
+            kk -= d8;
+            return Run{b16(wh) + (size_t)n * h_n + kk, h_n - kk};
           },
           smem);
+      float* out = p.gates + (size_t)part * r_n * g_n;
+      for (int i = threadIdx.x; i < CTile::BM * CTile::BN; i += kThreads) {
+        const int m = i / CTile::BN, j = i % CTile::BN;
+        const int r = row0 + m, n = col0 + j;
+        if (r < r_n && n < g_n)
+          out[(size_t)r * g_n + n] = acc[m * CTile::Acc + j];
+      }
     });
     grid.sync();
+    stamp(step, 4);
 
-    // C2: the cell (gate order i, f, g, o).
+    // C2: the cell (gate order i, f, g, o), the parts summed in order.
     for (size_t i = gtid; i < (size_t)r_n * h_n; i += gsize) {
-      const float* g = gates + i / h_n * g_n + i % h_n;
-      const float gi = sigmoid(g[0]), gf = sigmoid(g[h_n]);
-      const float gg = tanhf(g[2 * h_n]), go = sigmoid(g[3 * h_n]);
-      const float cn = gf * c[i] + gi * gg;
+      const size_t r = i / h_n, u = i % h_n;
+      float g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const size_t o = r * g_n + q * h_n + u;
+        float v = p.gates[o];
+        for (int part = 1; part < parts; ++part)
+          v += p.gates[(size_t)part * r_n * g_n + o];
+        g[q] = v + b_sum[q * h_n + u];
+      }
+      const float cn = sigmoid(g[1]) * c[i] + sigmoid(g[0]) * tanhf(g[2]);
       c_new[i] = cn;
-      hnew_c[i] = from_float<T>(go * tanhf(cn));
+      hnew_c[i] = from_float<T>(sigmoid(g[3]) * tanhf(cn));
     }
     grid.sync();
+    stamp(step, 5);
 
     // D: fc logits, rounded to T as the per-step path rounds them.
-    for_tiles(r_n, v_n, [&](int row0, int col0) {
-      gemm_tile(
-          row0, col0, r_n, v_n, h_n,
+    for_tiles(r_n, v_n, DTile::BM, DTile::BN, 1,
+              [&](int row0, int col0, int) {
+      const float* acc = product_tile<T, DShape>(
+          row0, col0, r_n, v_n, h_n, round8(h_n), 0, 1,
           [=](int r, int kk) {
             return to_float(hnew_c[(size_t)r * h_n + kk]);
           },
           [=](int n, int kk) { return to_float(wfc[(size_t)n * h_n + kk]); },
-          [=](int r, int n, float acc) {
-            logits[(size_t)r * v_n + n] =
-                to_float(from_float<T>(acc + to_float(bfc[n])));
+          [=](int r, int kk) {
+            return Run{b16(hnew_c) + (size_t)r * h_n + kk, h_n - kk};
+          },
+          [=](int n, int kk) {
+            return Run{b16(wfc) + (size_t)n * h_n + kk, h_n - kk};
           },
           smem);
+      for (int i = threadIdx.x; i < DTile::BM * DTile::BN; i += kThreads) {
+        const int m = i / DTile::BN, j = i % DTile::BN;
+        const int r = row0 + m, n = col0 + j;
+        if (r < r_n && n < v_n)
+          logits[(size_t)r * v_n + n] =
+              from_float<T>(acc[m * DTile::Acc + j] + to_float(bfc[n]));
+      }
     });
     grid.sync();
+    stamp(step, 6);
 
-    // E: per image, top-k and bookkeeping.
-    for (int img = blockIdx.x; img < b_n; img += gridDim.x)
-      select_image<T>(img, step, p, smem);
+    // E: per image, top-k and bookkeeping, on every `spread`-th block:
+    // spread over the grid rather than packed at its start, so that two
+    // of E's blocks share an SM less often.
+    if (blockIdx.x % spread == 0)
+      for (int img = blockIdx.x / spread; img < b_n;
+           img += gridDim.x / spread)
+        select_image<T>(img, step, p, smem);
     grid.sync();
+    stamp(step, 7);
   }
   if (gtid == 0) *p.steps = step - 1;
 }
@@ -503,7 +746,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_beam(Params p) {
 template <typename T>
 cudaError_t launch(Params& p, void* workspace, cudaStream_t stream,
                    int* grid_blocks) {
-  carve(p, static_cast<char*>(workspace), sizeof(T));
+  carve(p, static_cast<char*>(workspace), sizeof(T), c_parts<T>());
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -512,7 +755,7 @@ cudaError_t launch(Params& p, void* workspace, cudaStream_t stream,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes(p);
+  const size_t smem = smem_bytes<T>(p);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(fused_beam<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -524,7 +767,7 @@ cudaError_t launch(Params& p, void* workspace, cudaStream_t stream,
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int blocks = sms * std::min(per_sm, kMaxBlocksPerSm);
+  const int blocks = sms * std::min(per_sm, kBlocksPerSm);
   *grid_blocks = blocks;
   void* args[] = {&p};
   // The launch returns its own error. cudaGetLastError() here would also
@@ -552,13 +795,17 @@ Params sizes(int images, int k, int pix, int ddim, int adim, int hdim,
 
 }  // namespace
 
+// Phases a step, as the clock records them.
+extern "C" int icd_fused_beam_phases() { return kPhases; }
+
 // Bytes of scratch icd_fused_beam needs for these sizes (dtype as below).
 extern "C" size_t icd_fused_beam_workspace(int images, int k, int pix,
                                            int ddim, int adim, int hdim,
                                            int edim, int vocab,
                                            int max_steps, int dtype) {
   Params p = sizes(images, k, pix, ddim, adim, hdim, edim, vocab, max_steps);
-  return carve(p, nullptr, dtype == 1 ? 2 : 4);
+  return dtype == 1 ? carve(p, nullptr, 2, c_parts<__nv_bfloat16>())
+                    : carve(p, nullptr, 4, c_parts<float>());
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (every input but b_sum, which is f32).
@@ -571,9 +818,9 @@ extern "C" int icd_fused_beam(
     const void* bf, const void* wg, const void* bg, const void* wi,
     const void* wh, const void* b_sum, const void* wfc, const void* bfc,
     void* alpha, void* parent, void* best_seq, void* meta, void* steps,
-    void* workspace, int images, int k, int pix, int ddim, int adim,
-    int hdim, int edim, int vocab, int max_steps, int start_id, int end_id,
-    int dtype, void* stream, int* grid_blocks) {
+    void* phase_ns, void* workspace, int images, int k, int pix, int ddim,
+    int adim, int hdim, int edim, int vocab, int max_steps, int start_id,
+    int end_id, int dtype, void* stream, int* grid_blocks) {
   if (k < 1 || k > kMaxRows || images < 1 || pix < 1 || max_steps < 1 ||
       vocab < k || start_id < 0 || start_id >= vocab || end_id < 0 ||
       end_id >= vocab)
@@ -600,6 +847,7 @@ extern "C" int icd_fused_beam(
   p.best_seq = static_cast<int*>(best_seq);
   p.meta = static_cast<int*>(meta);
   p.steps = static_cast<int*>(steps);
+  p.phase_ns = static_cast<long long*>(phase_ns);
   p.start_id = start_id;
   p.end_id = end_id;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

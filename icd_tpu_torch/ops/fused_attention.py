@@ -36,7 +36,7 @@ from .. import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS_PER_IMAGE = 8
-_MAX_STATIC_SMEM = 48 * 1024
+_MAX_SMEM = 232448  # bytes of shared memory a block may take on an H100
 
 
 def fused_attention_reference(enc, att_enc, h, wd, bd, wf, bf, wg, bg,
@@ -106,7 +106,11 @@ def _check(enc, att_enc, h, wd, bd, wf, bf, wg, bg, k):
     if not 1 <= k <= _MAX_ROWS_PER_IMAGE:
         raise ValueError("K1 takes 1..{} rows per image, got {}".format(
             _MAX_ROWS_PER_IMAGE, k))
-    if (k + 1) * a * 4 > _MAX_STATIC_SMEM or k * p * 4 > _MAX_STATIC_SMEM:
+    # Shared memory of the scores kernel, then of the context kernel
+    # (csrc/attention_common.cuh: k att_dec rows and wf; k softmax rows,
+    # their transpose (P, 8) and a ring of 6 x 8 pixels of 512 columns).
+    ring = 6 * 8 * 512 * enc.element_size()
+    if max((k + 1) * a * 4, -(-k * p // 4) * 16 + p * 32 + ring) > _MAX_SMEM:
         raise ValueError("K1: k={}, P={}, A={} exceed its shared memory"
                          .format(k, p, a))
     return b, p, d, a, hd

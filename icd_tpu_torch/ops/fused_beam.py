@@ -27,7 +27,8 @@ no counterpart here.
 
 On the card this is ``csrc/fused_beam.cu``: one cooperative launch, bound
 by bytes (enc and att_enc read once a step); the source says how its
-design follows. ``beam_search_fused`` launches it for CUDA tensors and
+design follows. The launch also returns its own clock, ns after each
+grid barrier (``phase_ns``; ``phase_ms`` sums it phase by phase). ``beam_search_fused`` launches it for CUDA tensors and
 raises on what it does not take; for CPU tensors it runs the plain
 version, ``beam_search_fused_reference``.
 """
@@ -43,6 +44,8 @@ from ..models.lstm import gates_to_state
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BEAMS = 8
+# K2's phases a step, in order, as its clock records them.
+PHASES = ("A", "B1", "B2", "C", "C2", "D", "E")
 
 
 def _operands(decoder, encoder_grids):
@@ -277,11 +280,40 @@ def _check(ops, k, start_id, end_id, max_steps):
     return b, p, d, a, hd, e, v
 
 
+def phase_ms(phase_ns, steps):
+    """K2's clock as milliseconds: ``init``, then each of ``PHASES``
+    summed over the ``steps`` steps run, then ``total``.
+
+    ``phase_ns`` is a launch's (max_steps + 1, len(PHASES) + 1) int64
+    clock: row 0 holds the launch's start and the end of init; row s the
+    start of step s, then the end of each phase of it, in ns. Rows after
+    the last step run are not read.
+    """
+    t = torch.as_tensor(phase_ns)[:steps + 1].cpu().double()
+    if t.shape[0] != steps + 1 or t.shape[1] != len(PHASES) + 1:
+        raise ValueError("K2's clock has shape {}, expected ({}+, {})".format(
+            tuple(phase_ns.shape), steps + 1, len(PHASES) + 1))
+    per_phase = (t[1:, 1:] - t[1:, :-1]).sum(0) / 1e6
+    out = {"init": float(t[0, 1] - t[0, 0]) / 1e6}
+    out.update((name, float(ms)) for name, ms in zip(PHASES, per_phase))
+    out["total"] = float(t[steps, -1] - t[0, 0]) / 1e6
+    return out
+
+
 _ARG_ORDER = ("enc", "att_enc", "h0", "c0", "emb", "wd", "bd", "wf", "bf",
               "wg", "bg", "wi", "wh", "b_sum", "wfc", "bfc")
 
 
 def _launch(ops, k, start_id, end_id, max_steps):
+    """One K2 search: its raw outputs, ``steps`` read back (a host sync)."""
+    raw = _start(ops, k, start_id, end_id, max_steps)
+    raw["steps"] = int(raw["steps"].item())
+    return raw
+
+
+def _start(ops, k, start_id, end_id, max_steps):
+    """Launch K2 on the current stream without waiting for it: the raw
+    outputs, ``steps`` still a (1,) tensor on the card."""
     b, p, d, a, hd, e, v = _check(ops, k, start_id, end_id, max_steps)
     enc = ops["enc"]
     lib = kernels.load("fused_beam")
@@ -298,15 +330,20 @@ def _launch(ops, k, start_id, end_id, max_steps):
     best_seq = torch.empty((b, s_len), **i32)
     meta = torch.empty((b, 4), **i32)
     steps = torch.empty((1,), **i32)
+    phase_ns = torch.zeros((s_len, len(PHASES) + 1), dtype=torch.int64,
+                           device=dev)
     workspace = torch.empty((ws_fn(*sizes, code),), dtype=torch.uint8,
                             device=dev)
+    if lib.icd_fused_beam_phases() != len(PHASES):
+        raise RuntimeError("K2's library records {} phases, PHASES names {}"
+                           .format(lib.icd_fused_beam_phases(), len(PHASES)))
     fn = lib.icd_fused_beam
-    fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     ptrs = [ops[name].data_ptr() for name in _ARG_ORDER] + [
         t.data_ptr() for t in (alpha, parent, best_seq, meta, steps,
-                               workspace)]
+                               phase_ns, workspace)]
     blocks = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -318,5 +355,5 @@ def _launch(ops, k, start_id, end_id, max_steps):
     beam_search_fused.grid_blocks = blocks.value
     return dict(alpha=alpha, parent=parent, best_seq=best_seq,
                 best_len=meta[:, 0], best_step=meta[:, 1],
-                best_parent=meta[:, 2], found=meta[:, 3] > 0,
-                steps=int(steps.item()))
+                best_parent=meta[:, 2], found=meta[:, 3] > 0, steps=steps,
+                phase_ns=phase_ns)

@@ -12,11 +12,16 @@ against the plain version in f32 on the same rounded inputs, ctx within
 2^-8 |ref| + 1e-5 per element (the kernel rounds its f32 result to bf16
 once, at most 2^-9 relative) and alpha atol 1e-5. K2: f32 tokens equal
 and alphas atol 5e-6 (sums in another order); bf16 at least 15 of every
-16 captions equal, since bf16-rounded logits turn a last-bit difference
-of a sum into a different order of two near-tie beams.
+16 captions equal (at least 90 % on an N(0, 1) grid), since bf16-rounded
+logits turn a last-bit difference of a sum into a different order of two
+near-tie beams; bf16 step-1 alphas atol 1e-6 (the attention runs in f32
+from the same bf16 operands, only the sums' order differs). K2's phase
+clock within 10 % of CUDA events around the same launch (the card sleeps
+while the host sets the launch up, so the events time only the launch).
 """
 
 import contextlib
+import math
 
 import pytest
 import torch
@@ -28,6 +33,7 @@ from icd_tpu_torch.models.attention import (AttentionDecoderParams,
                                             init_attention_decoder)
 from icd_tpu_torch.models.encoder import EncoderAttention
 from icd_tpu_torch.models.resnet import init_resnet
+from icd_tpu_torch.ops import fused_beam
 from icd_tpu_torch.ops.fused_attention import (fused_attention,
                                                fused_attention_reference)
 from icd_tpu_torch.ops.fused_beam import (beam_search_fused,
@@ -76,6 +82,21 @@ def test_k1_bf16_matches_plain_f32(card, shape):
     ref_ctx, ref_alpha = fused_attention_reference(
         *(t.float() for t in args), rows_per_image=k)
     assert ctx.dtype == torch.bfloat16 and alpha.dtype == torch.float32
+    err = (ctx.float() - ref_ctx).abs()
+    assert bool((err <= 2 ** -8 * ref_ctx.abs() + 1e-5).all()), err.max()
+    torch.testing.assert_close(alpha, ref_alpha, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("hdim", [20, 40])
+def test_k1_bf16_depth_not_a_multiple_of_16(card, hdim):
+    """The tensor-core products of h take 16-deep steps: a depth of 40
+    ends in a zero-padded half step, one of 20 also takes its rows a
+    value at a time (rows of 40 bytes are not whole 16-byte words)."""
+    shape = (4, 5, 49, 256, 64, hdim)
+    args = [t.to(card, torch.bfloat16) for t in _k1_args(*shape, seed=2)]
+    ctx, alpha = fused_attention(*args, rows_per_image=5)
+    ref_ctx, ref_alpha = fused_attention_reference(
+        *(t.float() for t in args), rows_per_image=5)
     err = (ctx.float() - ref_ctx).abs()
     assert bool((err <= 2 ** -8 * ref_ctx.abs() + 1e-5).all()), err.max()
     torch.testing.assert_close(alpha, ref_alpha, atol=1e-5, rtol=0)
@@ -190,6 +211,71 @@ def test_k2_bf16_matches_plain(card):
     same = int((out["seq"] == ref["seq"]).all(dim=1).sum())
     assert same >= 30, same
     assert bool(out["alphas"].isfinite().all())
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_bf16_at_every_shape(card, shape):
+    """K2 in bf16 (tensor-core products, 16-byte streams, bf16 logits)
+    at ragged sizes, one beam, eight beams and 70 rows: step 1's raw
+    alphas against the plain version's, and the captions on an N(0, 1)
+    grid."""
+    dec, grids, k, start, end, steps = _k2_problem(card, shape,
+                                                   torch.bfloat16, seed=5)
+    ops = fused_beam._operands(dec, grids)
+    first = fused_beam._launch(ops, k, start, end, 1)
+    first_ref = fused_beam._search_plain(ops, k, start, end, 1)
+    torch.testing.assert_close(first["alpha"][1], first_ref["alpha"][1],
+                               atol=1e-6, rtol=0)
+    out = beam_search_fused(dec, grids, k, start, end, steps)
+    ref = beam_search_fused_reference(dec, grids, k, start, end, steps)
+    same = int((out["seq"] == ref["seq"]).all(dim=1).sum())
+    assert same >= math.ceil(0.9 * grids.shape[0]), (same, grids.shape[0])
+
+
+def test_k2_bf16_is_deterministic(card):
+    """Launches on the same operands give the same bits: no sum depends
+    on the order in which blocks or threads run. (Rows of the history
+    after the last step are never written, and not compared.)"""
+    dec, grids, k, start, end, steps = _k2_problem(card, K2_SHAPES[3],
+                                                   torch.bfloat16, seed=3)
+    ops = fused_beam._operands(dec, grids)
+    runs = [fused_beam._launch(ops, k, start, end, steps) for _ in range(3)]
+    n = runs[0]["steps"] + 1
+    for raw in runs[1:]:
+        assert raw["steps"] + 1 == n
+        for key in ("alpha", "parent"):
+            assert torch.equal(runs[0][key][:n], raw[key][:n]), key
+        for key in ("best_seq", "best_len", "best_step", "found"):
+            assert torch.equal(runs[0][key], raw[key]), key
+
+
+def test_k2_phase_clock(card):
+    """One clock row per step run, rising, and summing to the launch's
+    time by CUDA events within 10 %."""
+    shape = (64, 5, 196, 512, 128, 128, 64, 4000, 16)
+    dec, grids, k, start, end, steps = _k2_problem(card, shape,
+                                                   torch.bfloat16, seed=6)
+    ops = fused_beam._operands(dec, grids)
+    fused_beam._launch(ops, k, start, end, steps)  # warm-up
+    begin = torch.cuda.Event(enable_timing=True)
+    finish = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # the host's set-up ends before `begin`
+    begin.record()
+    raw = fused_beam._start(ops, k, start, end, steps)
+    finish.record()
+    finish.synchronize()
+    run = int(raw["steps"].item())
+    clock = raw["phase_ns"].cpu()
+    n = len(fused_beam.PHASES)
+    assert clock.shape == (steps + 1, n + 1)
+    assert bool((clock[1:run + 1] > 0).all())  # one row per step run
+    assert bool((clock[run + 1:] == 0).all())
+    stamps = torch.cat([clock[0, :2], clock[1:run + 1].flatten()])
+    assert bool((stamps.diff() > 0).all())
+    ms = fused_beam.phase_ms(clock, run)
+    event_ms = begin.elapsed_time(finish)
+    assert abs(ms["total"] - event_ms) <= 0.1 * event_ms, (ms, event_ms)
+    assert sum(ms[name] for name in fused_beam.PHASES) <= ms["total"]
 
 
 def test_k2_rejects_what_it_does_not_take(card):

@@ -21,7 +21,7 @@ import torch
 from icd_tpu.decoding.beam import beam_search_batched as jax_beam
 from icd_tpu.ops.fused_beam import beam_search_fused as jax_fused
 from icd_tpu_torch.decoding.beam import beam_search_batched
-from icd_tpu_torch.ops.fused_beam import beam_search_fused
+from icd_tpu_torch.ops.fused_beam import PHASES, beam_search_fused, phase_ms
 from icd_tpu_torch.params import decoder_from_jax
 from test_torch_beam import END, MAX_STEPS, P, START, _decoder, _grids
 
@@ -143,3 +143,30 @@ def test_bf16_matches_jax_fused_kernel():
     _assert_same({key: val.numpy() for key, val in out.items()
                   if key != "steps"}, ref, atol=2e-3)
     assert out["found"].all() and len(set(out["seq_len"].tolist())) >= 3
+
+
+def test_phase_ms_sums_the_steps_run():
+    """K2's clock to ms per phase: a synthetic (max_steps + 1, phases + 1)
+    timer of which only the first 3 of 5 steps ran; the rows after them
+    hold garbage that must not be read."""
+    n = len(PHASES)
+    rng = np.random.default_rng(0)
+    clock = np.full((6, n + 1), -7, np.int64)
+    clock[0, :2] = (1_000, 41_000)
+    t = 41_000
+    durations = rng.integers(1_000, 90_000, size=(3, n))
+    for s in range(3):
+        t += 500  # the live check between two steps
+        clock[s + 1, 0] = t
+        for i in range(n):
+            t += durations[s, i]
+            clock[s + 1, i + 1] = t
+    out = phase_ms(torch.from_numpy(clock), 3)
+    assert list(out) == ["init", *PHASES, "total"]
+    assert out["init"] == 0.04
+    for i, name in enumerate(PHASES):
+        assert out[name] == pytest.approx(durations[:, i].sum() / 1e6,
+                                          rel=1e-12)
+    assert out["total"] == pytest.approx((t - 1_000) / 1e6, rel=1e-12)
+    with pytest.raises(ValueError):
+        phase_ms(torch.from_numpy(clock), 6)  # more steps than rows

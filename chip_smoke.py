@@ -6,9 +6,10 @@
 Phases, one line of output each:
 
 1. build       compile every kernel from csrc/ (one nvcc per source, all
-               at once) and print the build seconds; then k2_ptxas, the
-               ptxas report of the bf16 K2 (registers, stack), which must
-               show no spills;
+               at once) and print the build seconds; then k1_ptxas and
+               k2_ptxas, registers and spill bytes of each bf16 kernel
+               entry of K1 (its gate and attention kernels) and of K2,
+               which must show no spills;
 2. k1          K1 (fused attention) against its plain PyTorch version, at
                a ragged shape and at the serving shapes: 64 images x 5
                beams, P=196, D=2048,
@@ -19,6 +20,11 @@ Phases, one line of output each:
                is at most 2^-9 relative) and alpha atol 1e-5. Times both
                (CUDA events, L2 flushed before each launch, the card
                asleep while the host sets it up) and prints the bound;
+               then k1_phases, K1's own clock on one bf16 launch: the
+               median over blocks of each phase (gate; att_dec, scores,
+               context, combine, store) and the span from the first
+               block's start to the last block's end, which must account
+               for the CUDA events' time of the same launch within 10 %;
 3. path_f32    a seeded random-init, full-width encoder (ResNet-101) and
                decoder (V=10,000; BN statistics re-estimated and <end>
                steered, see full_width_models), TF32 off, batch 8, k=5:
@@ -81,10 +87,6 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, same source
-F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
-
 # Serving shapes: bench.py:36-38 and tools/bench_beam.py:16-20.
 IMAGES, BEAMS, PIX, ENC_DIM, ATT_DIM, DEC_DIM = 64, 5, 196, 2048, 512, 512
 EMBED, VOCAB = 512, 10000
@@ -110,73 +112,14 @@ def card_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, iters=20, warmup=3, flush=None, settle=False):
-    """Median ms of ``fn`` on the card, CUDA events around each call;
-    ``flush`` (a large tensor) is zeroed before each call to empty L2.
-    With ``settle`` the card then sleeps while the host sets the call up,
-    so that the events time the card's work and not the host's."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        if settle:
-            torch.cuda._sleep(SETTLE_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def k1_inputs(gen, dtype, device):
-    """K1's arguments at the serving shapes, weights at 1/sqrt(fan_in)."""
-    import torch
-
-    rows = IMAGES * BEAMS
-
-    def n(*shape, scale=1.0):
-        t = torch.randn(shape, generator=gen) * scale
-        return t.to(device=device, dtype=dtype)
-
-    s = DEC_DIM ** -0.5
-    return (n(IMAGES, PIX, ENC_DIM), n(IMAGES, PIX, ATT_DIM),
-            n(rows, DEC_DIM), n(ATT_DIM, DEC_DIM, scale=s),
-            n(ATT_DIM, scale=s),
-            n(ATT_DIM, scale=ATT_DIM ** -0.5), n(1, scale=0.1),
-            n(ENC_DIM, DEC_DIM, scale=s), n(ENC_DIM, scale=s))
-
-
-def k1_bound_ms(args, out):
-    """Least time for K1's work on an H100: each input read once, each
-    output written once, at 3.35 TB/s; its operations at the bf16 peak."""
-    enc, att_enc, h = args[0], args[1], args[2]
-    rows, hd = h.shape
-    b, p, d = enc.shape
-    a = att_enc.shape[2]
-    nbytes = sum(t.numel() * t.element_size() for t in (*args, *out))
-    flops = (2 * rows * hd * (a + d)  # the two products of h
-             + 4 * rows * p * a  # add, relu, multiply-add per score term
-             + 2 * rows * p * d)  # context sum
-    peak = BF16_FLOP_PER_S if enc.element_size() == 2 else F32_FLOP_PER_S
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
-                                         else "operations")
-
-
 def k2_bound_ms(ops, k, steps):
     """Least time for one K2 search of ``steps`` steps on an H100: enc and
     att_enc read once a step (no chip memory holds them at batch 64), the
     weights, h0 and c0 read once, of the embedding only the rows gathered
     (one a beam a step, at most the whole table), the raw alphas written
     once; the step's products at the peak of the grid's dtype."""
+    from icd_tpu_torch import k1_bench
+
     enc, att_enc, emb = ops["enc"], ops["att_enc"], ops["emb"]
     b, p, d = enc.shape
     a, hd = ops["wd"].shape
@@ -192,8 +135,9 @@ def k2_bound_ms(ops, k, steps):
                      + 2 * rows * p * d  # context
                      + 2 * rows * (e + d + hd) * 4 * hd  # LSTM gates
                      + 2 * rows * hd * v)  # fc
-    peak = BF16_FLOP_PER_S if enc.element_size() == 2 else F32_FLOP_PER_S
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    peak = (k1_bench.BF16_FLOP_PER_S if enc.element_size() == 2
+            else k1_bench.F32_FLOP_PER_S)
+    by_bytes, by_ops = nbytes / k1_bench.HBM_BYTES_PER_S, flops / peak
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
                                          else "operations")
 
@@ -207,30 +151,44 @@ def phase_build():
     for name, (path, ptxas) in reports.items():
         print("ptxas {}:\n{}".format(name, ptxas), file=sys.stderr)
     log("build", seconds=round(seconds, 3), kernels=sorted(reports))
-    k2_ptxas(reports["fused_beam"][1])
+    ptxas_line("k1_ptxas", reports["fused_attention"][1],
+               ("k1_gate", "k1_attention"))
+    ptxas_line("k2_ptxas", reports["fused_beam"][1], ("fused_beam",))
 
 
-def k2_ptxas(report):
-    """ptxas's lines for the bf16 K2 (registers, stack, spills)."""
-    entry = None
-    lines = []
+def ptxas_line(phase, report, kernels):
+    """ptxas's report for the bf16 entry functions whose names hold one
+    of ``kernels``: registers and spill bytes of each; fails on any
+    spill."""
+    entries = []
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            entry = "fused_beam" in line and "nv_bfloat16" in line
-        elif entry:
-            lines.append(line.split(":", 1)[-1].strip())
+            name = line.split("'")[1] if "'" in line else line
+            keep = ("nv_bfloat16" in name
+                    and any(k in name for k in kernels))
+            entries.append(dict(entry=name) if keep else None)
+        elif entries and entries[-1] is not None:
+            spills = re.findall(r"(\d+) bytes spill", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spills:
+                entries[-1]["spill_bytes"] = sum(int(n) for n in spills)
+            if regs:
+                entries[-1]["registers"] = int(regs.group(1))
     if not report:
-        log("k2_ptxas", report="not built in this run (library cached)")
+        log(phase, report="not built in this run (library cached)")
         return
-    spills = [int(n) for line in lines
-              for n in re.findall(r"(\d+) bytes spill", line)]
-    check(lines and spills, "ptxas report of the bf16 K2", lines)
-    check(sum(spills) == 0, "bf16 K2 spills registers", lines)
-    log("k2_ptxas", report=lines, spill_bytes=sum(spills))
+    entries = [e for e in entries if e is not None]
+    check(entries and all("spill_bytes" in e for e in entries),
+          "ptxas report of " + phase, entries)
+    spilled = sum(e["spill_bytes"] for e in entries)
+    check(spilled == 0, phase + ": bf16 kernel spills registers", entries)
+    log(phase, report=entries, spill_bytes=spilled)
 
 
 def phase_k1(results):
     import torch
+
+    from icd_tpu_torch.k1_bench import k1_bound_ms, k1_inputs, time_ms
 
     from icd_tpu_torch.ops.fused_attention import (fused_attention,
                                                    fused_attention_reference)
@@ -281,13 +239,45 @@ def phase_k1(results):
     bound_ms, bound_by = k1_bound_ms(args16, (ctx, alpha))
     results["fused_attention"] = dict(
         max_abs_err=bf16_ctx_err, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by)
+        bound_ms=bound_ms, bound_by=bound_by,
+        phase_us=k1_phases(args16, flush))
     log("k1", shapes=dict(images=IMAGES, rows_per_image=BEAMS, P=PIX,
                           D=ENC_DIM, A=ATT_DIM, H=DEC_DIM),
         f32_ctx_err=f32_ctx_err, f32_alpha_err=f32_alpha_err,
         bf16_ctx_err=bf16_ctx_err, bf16_alpha_err=bf16_alpha_err,
         kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
+
+
+def k1_phases(args, flush):
+    """One bf16 K1 launch at the serving shapes, L2 emptied before it:
+    its own clock (median us of each phase over blocks, and the span
+    from the first block's start to the last block's end) against CUDA
+    events around the same launch. The span must account for the
+    launch within 10 %."""
+    import torch
+
+    from icd_tpu_torch.ops.fused_attention import _launch, phase_us
+
+    flush.zero_()
+    # The card sleeps while the host sets the launch up, so the events
+    # time the launch and nothing of the host.
+    torch.cuda._sleep(SETTLE_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, _, clock = _launch(*args, BEAMS)
+    end.record()
+    end.synchronize()
+    event_us = start.elapsed_time(end) * 1e3
+    for stamps in clock.values():
+        check(bool((stamps.diff(dim=1) >= 0).all()), "K1 clock runs forward")
+    us = phase_us(clock)
+    check(abs(us["span"] - event_us) <= 0.1 * event_us,
+          "K1 clock vs CUDA events", us["span"], event_us)
+    log("k1_phases", event_us=event_us, span_us=us["span"],
+        median_us={name: v for name, v in us.items() if name != "span"})
+    return us
 
 
 def calibrate_bn(encoder, imgs):
@@ -564,6 +554,7 @@ def phase_serve_fused_bf16(models, results):
     import torch
 
     from icd_tpu_torch.decoding.serve import make_beam_captioner
+    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.ops import fused_beam
     from icd_tpu_torch.ops.fused_attention import fused_attention
 

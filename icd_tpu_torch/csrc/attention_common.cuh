@@ -1,12 +1,12 @@
-// Device code shared by K1 (fused_attention.cu) and K2 (fused_beam.cu).
+// Device code of K2 (fused_beam.cu), whose tiled products K1
+// (fused_attention.cu) also uses for its gate.
 //
-// K1 launches each piece below as a kernel of its own; K2 runs the same
-// pieces as phases of one persistent cooperative kernel, each block
-// walking a share of the work items. So every piece takes its work item
-// (a tile, an image and a chunk) as arguments instead of reading
-// blockIdx, starts with __syncthreads() before it writes shared memory
-// (the previous item or phase may still read it), and assumes
-// kThreads threads per block.
+// K2 runs the pieces below as phases of one persistent cooperative
+// kernel, each block walking a share of the work items. So every piece
+// takes its work item (a tile, an image and a chunk) as arguments
+// instead of reading blockIdx, starts with __syncthreads() before it
+// writes shared memory (the previous item or phase may still read it),
+// and assumes kThreads threads per block.
 //
 // Buffers that K2 rewrites while it runs (h, att_dec, gate, scores, ctx)
 // are read through plain pointers or cp.async.cg (which reads L2), never

@@ -22,9 +22,17 @@ Weights are in ``nn.Linear`` layout: ``wd`` (A, H), ``wg`` (D, H);
 
 On the card this is ``csrc/fused_attention.cu``: bound by bytes, about
 20 us at the serving shapes in bf16 (enc 51 MB + att_enc 13 MB read
-once at 3.35 TB/s); the source says how its design follows from that.
-``fused_attention`` launches it for CUDA tensors and raises on what it
-does not take; for CPU tensors it runs ``fused_attention_reference``.
+once at 3.35 TB/s). Two launches chained by programmatic dependent
+launch: the gate product of all rows, then one cluster of four blocks per
+image that streams the image's att_enc and enc rows once with bulk
+asynchronous copies from its first microsecond, computes att_dec itself,
+scores and sums with a softmax per block, and combines the four blocks'
+partial sums through distributed shared memory. Its sums are f32
+throughout, the context's weights included (the plain version and the
+TPU kernel round alpha to bf16 before that product in bf16); the source
+says how the design follows from the bound. ``fused_attention``
+launches it for CUDA tensors and raises on what it does not take; for
+CPU tensors it runs ``fused_attention_reference``.
 """
 
 import ctypes
@@ -36,7 +44,10 @@ from .. import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS_PER_IMAGE = 8
+_MAX_D = 2048  # 256 threads x 8 columns of the context sum
 _MAX_SMEM = 232448  # bytes of shared memory a block may take on an H100
+# K1's clock: the gate launch's one phase, then the attention launch's.
+PHASES = ("gate", "att_dec", "scores", "context", "combine", "store")
 
 
 def fused_attention_reference(enc, att_enc, h, wd, bd, wf, bf, wg, bg,
@@ -69,7 +80,9 @@ def fused_attention(enc, att_enc, h, wd, bd, wf, bf, wg, bg,
     if enc.device.type == "cpu":
         return fused_attention_reference(enc, att_enc, h, wd, bd, wf, bf,
                                          wg, bg, rows_per_image)
-    return _launch(enc, att_enc, h, wd, bd, wf, bf, wg, bg, rows_per_image)
+    ctx, alpha, _ = _launch(enc, att_enc, h, wd, bd, wf, bf, wg, bg,
+                            rows_per_image)
+    return ctx, alpha
 
 
 fused_attention.launches = 0
@@ -106,36 +119,76 @@ def _check(enc, att_enc, h, wd, bd, wf, bf, wg, bg, k):
     if not 1 <= k <= _MAX_ROWS_PER_IMAGE:
         raise ValueError("K1 takes 1..{} rows per image, got {}".format(
             _MAX_ROWS_PER_IMAGE, k))
-    # Shared memory of the scores kernel, then of the context kernel
-    # (csrc/attention_common.cuh: k att_dec rows and wf; k softmax rows,
-    # their transpose (P, 8) and a ring of 6 x 8 pixels of 512 columns).
-    ring = 6 * 8 * 512 * enc.element_size()
-    if max((k + 1) * a * 4, -(-k * p // 4) * 16 + p * 32 + ring) > _MAX_SMEM:
-        raise ValueError("K1: k={}, P={}, A={} exceed its shared memory"
-                         .format(k, p, a))
+    if d > _MAX_D:
+        raise ValueError("K1 takes D <= {}, got {}".format(_MAX_D, d))
     return b, p, d, a, hd
 
 
+def _sizes(lib, b, k, p, d, a, hd, dtype):
+    """(shared memory of an attention block in bytes, gate blocks,
+    attention blocks, stamps a gate block writes, stamps an attention
+    block writes), from the library."""
+    fn = lib.icd_fused_attention_sizes
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(b, k, p, d, a, hd, _DTYPE_CODES[dtype], out)
+    if err != 0:
+        raise RuntimeError("K1 sizes: CUDA error {}".format(err))
+    return tuple(out)
+
+
 def _launch(enc, att_enc, h, wd, bd, wf, bf, wg, bg, k):
+    """Launch K1 on the current stream: (ctx, alpha, clock), where clock
+    holds the ``gate`` launch's stamps (blocks, 2) and the ``attention``
+    launch's (blocks, 6), in ns of the card's clock (see ``phase_us``)."""
     b, p, d, a, hd = _check(enc, att_enc, h, wd, bd, wf, bf, wg, bg, k)
     lib = kernels.load("fused_attention")
+    smem, gate_blocks, att_blocks, gate_stamps, att_stamps = _sizes(
+        lib, b, k, p, d, a, hd, enc.dtype)
+    if smem > _MAX_SMEM:
+        raise ValueError("K1: k={}, P={}, D={}, A={} need {} bytes of shared "
+                         "memory a block, more than {}".format(
+                             k, p, d, a, smem, _MAX_SMEM))
     rows = b * k
-    f32 = dict(dtype=torch.float32, device=enc.device)
-    att_dec = torch.empty(rows, a, **f32)
-    gate = torch.empty(rows, d, **f32)
-    scores = torch.empty(rows, p, **f32)
-    alpha = torch.empty(rows, p, **f32)
-    ctx = torch.empty(rows, d, dtype=enc.dtype, device=enc.device)
+    dev = enc.device
+    gate = torch.empty(rows, d, dtype=torch.float32, device=dev)
+    alpha = torch.empty(rows, p, dtype=torch.float32, device=dev)
+    ctx = torch.empty(rows, d, dtype=enc.dtype, device=dev)
+    n_gate = gate_blocks * gate_stamps
+    clock = torch.empty(n_gate + att_blocks * att_stamps, dtype=torch.int64,
+                        device=dev)
     ptrs = [t.data_ptr() for t in (enc, att_enc, h, wd, bd, wf, bf, wg, bg,
-                                   att_dec, gate, scores, ctx, alpha)]
+                                   gate, ctx, alpha, clock)]
     fn = lib.icd_fused_attention
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(enc.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*ptrs, b, k, p, d, a, hd, _DTYPE_CODES[enc.dtype], stream)
     if err != 0:
         raise RuntimeError("K1 launch failed: CUDA error {}".format(err))
     fused_attention.launches += 1
-    return ctx, alpha
+    return ctx, alpha, dict(
+        gate=clock[:n_gate].view(gate_blocks, gate_stamps),
+        attention=clock[n_gate:].view(att_blocks, att_stamps))
+
+
+def phase_us(clock):
+    """K1's clock as microseconds: for each of ``PHASES`` the median over
+    blocks of its duration in a block, and ``span``, from the first
+    block's start to the last block's end over both launches."""
+    g = clock["gate"].cpu().double()
+    t = clock["attention"].cpu().double()
+    durations = [g[:, 1] - g[:, 0]] + [t[:, i + 1] - t[:, i]
+                                       for i in range(t.shape[1] - 1)]
+    if len(durations) != len(PHASES):
+        raise ValueError("K1's clock has {} phases, PHASES names {}".format(
+            len(durations), len(PHASES)))
+    out = {name: float(v.median()) / 1e3
+           for name, v in zip(PHASES, durations)}
+    start = min(float(g[:, 0].min()), float(t[:, 0].min()))
+    end = max(float(g[:, 1].max()), float(t[:, -1].max()))
+    out["span"] = (end - start) / 1e3
+    return out

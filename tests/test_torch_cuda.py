@@ -17,7 +17,9 @@ logits turn a last-bit difference of a sum into a different order of two
 near-tie beams; bf16 step-1 alphas atol 1e-6 (the attention runs in f32
 from the same bf16 operands, only the sums' order differs). K2's phase
 clock within 10 % of CUDA events around the same launch (the card sleeps
-while the host sets the launch up, so the events time only the launch).
+while the host sets the launch up, so the events time only the launch),
+and K1's likewise: the span from its first block's start to its last
+block's end.
 """
 
 import contextlib
@@ -102,6 +104,80 @@ def test_k1_bf16_depth_not_a_multiple_of_16(card, hdim):
     torch.testing.assert_close(alpha, ref_alpha, atol=1e-5, rtol=0)
 
 
+def _k1_against_plain(card, shape, dtype, seed):
+    args = [t.to(card, dtype) for t in _k1_args(*shape, seed=seed)]
+    k = shape[1]
+    ctx, alpha = fused_attention(*args, rows_per_image=k)
+    ref_ctx, ref_alpha = fused_attention_reference(
+        *(t.float() for t in args), rows_per_image=k)
+    assert ctx.dtype == dtype and alpha.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(ctx, ref_ctx, atol=2e-5, rtol=0)
+        torch.testing.assert_close(alpha, ref_alpha, atol=2e-6, rtol=0)
+    else:
+        err = (ctx.float() - ref_ctx).abs()
+        assert bool((err <= 2 ** -8 * ref_ctx.abs() + 1e-5).all()), err.max()
+        torch.testing.assert_close(alpha, ref_alpha, atol=1e-5, rtol=0)
+
+
+# (images, rows per image, P, D, A, H). The attention launch splits P
+# over a cluster of 3 blocks in chunks of ceil(P / 3): P = 1 leaves two
+# blocks empty, 7 and 13 leave the last block short, 196 is the serving
+# P. k = 1, 5 and 8 beams. D = 100 and A = 36 in bf16 (and D = 102 in
+# f32) are not whole 16-byte words; D = 1030 splits unevenly over the
+# cluster's 3 column shares, A = 80 over its att_dec shares (32, 32,
+# 16); H = 40 is not a multiple of the 32-deep slices of att_dec's
+# product.
+K1_SHAPES = [(3, 5, 1, 64, 32, 32), (3, 5, 7, 64, 32, 32),
+             (2, 8, 13, 128, 64, 64), (4, 1, 196, 256, 64, 64),
+             (2, 5, 196, 2048, 512, 512), (3, 5, 49, 100, 36, 40),
+             (3, 8, 30, 102, 36, 40), (2, 5, 49, 1030, 80, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_cluster_splits_match_plain(card, shape, dtype):
+    _k1_against_plain(card, shape, dtype, seed=3)
+
+
+def test_k1_is_deterministic(card):
+    """The cluster combines its blocks' partial sums in a fixed order:
+    two launches on the same operands give the same bits."""
+    args = [t.to(card, torch.bfloat16)
+            for t in _k1_args(8, 5, 196, 2048, 512, 512, seed=4)]
+    runs = [fused_attention(*args, rows_per_image=5) for _ in range(3)]
+    for ctx, alpha in runs[1:]:
+        assert torch.equal(ctx, runs[0][0])
+        assert torch.equal(alpha, runs[0][1])
+
+
+def test_k1_phase_clock(card):
+    """Every block stamps its phases in order, and the span from the
+    first block's start to the last block's end accounts for the CUDA
+    events around the same call within 10 %."""
+    from icd_tpu_torch.ops.fused_attention import PHASES, _launch, phase_us
+
+    args = [t.to(card, torch.bfloat16)
+            for t in _k1_args(64, 5, 196, 2048, 512, 512, seed=5)]
+    _launch(*args, 5)  # warm-up
+    begin = torch.cuda.Event(enable_timing=True)
+    finish = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # the host's set-up ends before `begin`
+    begin.record()
+    _, _, clock = _launch(*args, 5)
+    finish.record()
+    finish.synchronize()
+    gate, att = clock["gate"].cpu(), clock["attention"].cpu()
+    assert gate.shape[1] == 2 and att.shape[1] == len(PHASES)
+    assert att.shape[0] % 64 == 0  # a cluster of blocks per image
+    assert bool((gate.diff(dim=1) >= 0).all())
+    assert bool((att.diff(dim=1) >= 0).all())
+    us = phase_us(clock)
+    assert set(us) == set(PHASES) | {"span"}
+    event_us = begin.elapsed_time(finish) * 1e3
+    assert abs(us["span"] - event_us) <= 0.1 * event_us, (us, event_us)
+
+
 def test_k1_rejects_what_it_does_not_take(card):
     args = [t.to(card) for t in _k1_args(2, 3, 16, 32, 8, 8)]
     with pytest.raises(TypeError):
@@ -116,6 +192,17 @@ def test_k1_rejects_what_it_does_not_take(card):
     wide = [t.to(card) for t in _k1_args(1, 9, 16, 32, 8, 8)]
     with pytest.raises(ValueError):
         fused_attention(*wide, rows_per_image=9)
+    # D beyond 256 threads x 8 columns of the context sum.
+    with pytest.raises(ValueError, match="D <="):
+        fused_attention(*(t.to(card) for t in _k1_args(1, 2, 4, 2049, 8, 8)),
+                        rows_per_image=2)
+    # att_dec rows (k, A) f32 beyond a block's shared memory.
+    with pytest.raises(ValueError, match="shared"):
+        fused_attention(*(t.to(card, torch.bfloat16)
+                          for t in _k1_args(1, 8, 4, 64, 8192, 8)),
+                        rows_per_image=8)
+    # ... and a good launch after the refusals.
+    _k1_against_plain(card, K1_SHAPES[0], torch.float32, seed=0)
 
 
 @contextlib.contextmanager

@@ -132,3 +132,23 @@ def test_decode_step_matches_jax():
                           t(h), t(c))
     for got, want in zip(out, ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_phase_us_reads_the_clock():
+    """K1's clock as the kernel writes it (ns): the gate launch's blocks
+    (start, end), the attention launch's (start and the end of each
+    phase); phase_us gives the median over blocks of each phase and the
+    span from the first start to the last end."""
+    from icd_tpu_torch.ops.fused_attention import PHASES, phase_us
+
+    gate = torch.tensor([[0, 4000], [1000, 7000], [0, 5000]])
+    att = torch.tensor([[500, 1500, 2500, 5500, 6500, 9000],
+                        [1000, 3000, 4000, 6000, 7000, 8000]])
+    us = phase_us(dict(gate=gate, attention=att))
+    assert set(us) == set(PHASES) | {"span"}
+    assert us["gate"] == 5.0  # the median of 4, 6 and 5 us
+    assert us["att_dec"] == 1.0  # the lower median of 1 and 2 us
+    assert us["context"] == 2.0 and us["store"] == 1.0
+    assert us["span"] == 9.0
+    with pytest.raises(ValueError):
+        phase_us(dict(gate=gate, attention=att[:, :4]))

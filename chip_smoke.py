@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive icd_tpu_torch's beam-search serving paths on one CUDA card.
+"""Drive icd_tpu_torch's serving paths on one CUDA card: beam search
+(float and int8 encoder) and greedy decoding (float and W8A8 decoder).
 
     python3 chip_smoke.py
 
@@ -25,6 +26,17 @@ Phases, one line of output each:
                context, combine, store) and the span from the first
                block's start to the last block's end, which must account
                for the CUDA events' time of the same launch within 10 %;
+               and K1 at one row per image (greedy decoding's shape, 64
+               images), f32 and bf16 within the same tolerances, timed
+               with its bound;
+   int8_conv   ops.quant.conv2d_int8 (im2col + torch._int_mm) on the card
+               at every distinct ResNet-101 convolution site at batch 2
+               (the 7x7/2 stem with K padded, the 1x1 and 3x3 sites, the
+               1x1 stride-2 downsamples): int32 sums equal to the same
+               function on the CPU and to a float64 convolution of the
+               int8 values; the dynamic int8_conv once against the CPU;
+               one batch-64 site timed with the weights column-major and
+               row-major, beside cuDNN's bf16 convolution of that shape;
 3. path_f32    a seeded random-init, full-width encoder (ResNet-101) and
                decoder (V=10,000; BN statistics re-estimated and <end>
                steered, see full_width_models), TF32 off, batch 8, k=5:
@@ -69,7 +81,36 @@ Phases, one line of output each:
                captioner over 130 seeded uint8 images at batch 64 (three
                batches, the last padded): 130 results, seconds per caption;
 9. profile_fused  one fused beam search under torch.profiler (table in
-               build/profile_fused_beam.txt).
+               build/profile_fused_beam.txt);
+10. int8_encoder  the static-int8 ResNet-101 calibrated (bf16) on the 16
+               images full_width_models uses: (a) its grid on the card
+               against the CPU for 2 images, at most one quantization
+               step of the last site apart (expected equal; the count of
+               differing elements is printed); (b) the relative L2 error
+               of the int8 grid against the float bf16 grid at batch 64,
+               a quality number (a random trunk is not a trained one: not
+               gated); (c) int8 and float encoder ms at batch 64 in bf16,
+               peak memory of each, and the int8 encoder's device time by
+               ATen op from torch.profiler (build/profile_int8_encoder.txt);
+11. greedy     make_attention_captioner: f32 at batch 8, TF32 off, tokens
+               through K1 equal to those through its plain version and
+               alphas atol 5e-6, K1 launches equal to the steps; then bf16
+               at batch 64, max_len 25: encoder ms, decode ms, steps, K1
+               launches, captions/s, peak memory;
+12. serve_int8_greedy_bf16  make_int8_attention_captioner at batch 64 with
+               the float and the W8A8 decoder: encoder ms, decode ms,
+               steps, K1 launches, captions/s; qmatmul's int32 sums at the
+               decoder's shapes (and 5 rows, and 9,490 columns) equal on
+               the card and the CPU;
+13. serve_int8_beam_bf16  the int8 encoder feeding the per-step loop (K1),
+               the fused search (K2) and the per-step loop with
+               int8_grid, batch 64: encoder ms, beam ms, steps,
+               launches, captions/s;
+14. beam_eval_int8  caption_images with the int8 per-step captioner (the
+               CLI's default configuration) over the same 130 images.
+
+Every path is driven with the launch counts set to 0 just before it and
+read just after; each must have launched its kernels.
 
 Then one JSON line of every kernel's numbers (K2's with its per-phase
 ms), the card's name and power limit as nvidia-smi gives them, and last
@@ -92,6 +133,7 @@ IMAGES, BEAMS, PIX, ENC_DIM, ATT_DIM, DEC_DIM = 64, 5, 196, 2048, 512, 512
 EMBED, VOCAB = 512, 10000
 START_ID, END_ID = VOCAB - 3, VOCAB - 2
 SETTLE_CYCLES = 100_000_000  # about 50 ms of the card's clock
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
 def check(ok, what, *values):
@@ -240,13 +282,55 @@ def phase_k1(results):
     results["fused_attention"] = dict(
         max_abs_err=bf16_ctx_err, ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by,
-        phase_us=k1_phases(args16, flush))
+        phase_us=k1_phases(args16, flush),
+        rows_per_image_1=k1_one_row(args32, flush), launches_by_path={})
     log("k1", shapes=dict(images=IMAGES, rows_per_image=BEAMS, P=PIX,
                           D=ENC_DIM, A=ATT_DIM, H=DEC_DIM),
         f32_ctx_err=f32_ctx_err, f32_alpha_err=f32_alpha_err,
         bf16_ctx_err=bf16_ctx_err, bf16_alpha_err=bf16_alpha_err,
         kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
+        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms,
+        rows_per_image_1=results["fused_attention"]["rows_per_image_1"])
+
+
+def k1_one_row(args32, flush):
+    """K1 at greedy decoding's shape, one row per image for 64 images, in
+    f32 and bf16 against its plain version (the tolerances of phase_k1),
+    and its bf16 time beside its bound and the plain version's."""
+    import torch
+
+    from icd_tpu_torch.k1_bench import k1_bound_ms, time_ms
+    from icd_tpu_torch.ops.fused_attention import (fused_attention,
+                                                   fused_attention_reference)
+
+    one32 = args32[:2] + (args32[2][:IMAGES].contiguous(),) + args32[3:]
+    ctx, alpha = fused_attention(*one32)
+    ref_ctx, ref_alpha = fused_attention_reference(*one32)
+    torch.cuda.synchronize()
+    f32_ctx_err = (ctx - ref_ctx).abs().max().item()
+    f32_alpha_err = (alpha - ref_alpha).abs().max().item()
+    check(f32_ctx_err <= 2e-5, "one row: f32 ctx error", f32_ctx_err)
+    check(f32_alpha_err <= 2e-6, "one row: f32 alpha error", f32_alpha_err)
+    one16 = tuple(t.to(torch.bfloat16) for t in one32)
+    ctx, alpha = fused_attention(*one16)
+    ref_ctx, ref_alpha = fused_attention_reference(*(t.float()
+                                                     for t in one16))
+    torch.cuda.synchronize()
+    err = (ctx.float() - ref_ctx).abs()
+    check(bool((err <= 2 ** -8 * ref_ctx.abs() + 1e-5).all()),
+          "one row: bf16 ctx error", err.max().item())
+    bf16_alpha_err = (alpha - ref_alpha).abs().max().item()
+    check(bf16_alpha_err <= 1e-5, "one row: bf16 alpha error",
+          bf16_alpha_err)
+    kernel_ms = time_ms(lambda: fused_attention(*one16), flush=flush,
+                        settle=True)
+    plain_ms = time_ms(lambda: fused_attention_reference(*one16),
+                       flush=flush, settle=True)
+    bound_ms, bound_by = k1_bound_ms(one16, (ctx, alpha))
+    return dict(images=IMAGES, f32_ctx_err=f32_ctx_err,
+                f32_alpha_err=f32_alpha_err, bf16_ctx_err=err.max().item(),
+                bf16_alpha_err=bf16_alpha_err, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def k1_phases(args, flush):
@@ -339,16 +423,20 @@ def uint8_images(n, seed):
 
 @contextlib.contextmanager
 def plain_attention():
-    """decode_step through K1's plain version, for the comparison run."""
+    """decode_step and the W8A8 greedy step through K1's plain version,
+    for the comparison runs."""
+    import icd_tpu_torch.decoding.greedy_attention as greedy
     import icd_tpu_torch.models.attention as attention
     from icd_tpu_torch.ops.fused_attention import fused_attention_reference
 
     kernel = attention.fused_attention
     attention.fused_attention = fused_attention_reference
+    greedy.fused_attention = fused_attention_reference
     try:
         yield
     finally:
         attention.fused_attention = kernel
+        greedy.fused_attention = kernel
 
 
 def phase_path_f32(models):
@@ -452,7 +540,8 @@ def phase_k2(path_f32, results):
     grid64 = captioner.encode(uint8_images(IMAGES, seed=3))
     out64, err64, loop_err64 = k2_against_plain(
         captioner.decoder, grid64, BEAMS, START_ID, END_ID, 51, "f32 b64")
-    results["fused_beam"] = dict(max_abs_err=max(err, err64))
+    results["fused_beam"] = dict(max_abs_err=max(err, err64),
+                                 launches_by_path={})
     log("k2", ragged=dict(images=3, beams=3, P=49, V=vocab, max_steps=9,
                           steps=small["steps"], alpha_err_vs_plain=small_err,
                           seq_len=small["seq_len"].tolist()),
@@ -503,6 +592,7 @@ def phase_serve_bf16(models, results):
     check(bool(((lens >= 2) & (lens <= 52)).all()), "seq_len range")
     check(bool(out["alphas"].isfinite().all()), "finite alphas")
     results["fused_attention"]["launches"] = launches
+    results["fused_attention"]["launches_by_path"]["serve_bf16"] = launches
     log("serve_bf16", images=IMAGES, beams=BEAMS, vocab=VOCAB,
         encoder_ms=(t1 - t0) * 1e3, beam_ms=(t2 - t1) * 1e3,
         steps=out["steps"], k1_launches=launches,
@@ -538,10 +628,8 @@ def phase_profile(captioner, grid, phase="profile",
                       if e.device_type == DeviceType.CUDA),
                      reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, table), "w") as f:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, table), "w") as f:
         for us, count, name in kernels:
             f.write("{:12.1f} us {:6d}x  {}\n".format(us, count, name))
     log(phase, steps=out["steps"], wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -639,6 +727,7 @@ def phase_serve_fused_bf16(models, results):
                        iters=3, warmup=1, flush=flush)
     bound_ms, bound_by = k2_bound_ms(ops, BEAMS, steps)
     phases = k2_phases(ops, search, flush)
+    results["fused_beam"]["launches_by_path"]["serve_fused_bf16"] = launches
     results["fused_beam"].update(launches=launches, ms=kernel_ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, phase_ms=phases)
@@ -699,13 +788,16 @@ def k2_phases(ops, search, flush):
     return ms
 
 
-def phase_beam_eval(captioner):
+def phase_beam_eval(captioner, results, phase="beam_eval"):
     """The val-split captioner's batch loop over 130 images: three
-    batches of 64, the last padded by repeating its last image."""
+    batches of 64, the last padded by repeating its last image. A fused
+    captioner launches K2 once a batch and K1 never; a per-step one K1
+    once a step."""
     import numpy as np
     import torch
 
     from icd_tpu_torch.beam_eval import caption_images
+    from icd_tpu_torch.ops.fused_attention import fused_attention
     from icd_tpu_torch.ops.fused_beam import beam_search_fused
     from icd_tpu_torch.vocabulary import Vocabulary
 
@@ -720,22 +812,454 @@ def phase_beam_eval(captioner):
         return pool[[i - 1000 for i in ids]]
 
     beam_search_fused.launches = 0
+    fused_attention.launches = 0
     t0 = time.perf_counter()
     rows = caption_images(captioner, img_ids, load_batch, vocab, IMAGES,
                           log=lambda line: None)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check(len(rows) == n, "beam_eval results", len(rows))
-    check([r["image_id"] for r in rows] == img_ids, "beam_eval image ids")
+    k1, k2 = fused_attention.launches, beam_search_fused.launches
+    check(len(rows) == n, phase + " results", len(rows))
+    check([r["image_id"] for r in rows] == img_ids, phase + " image ids")
     check(all(isinstance(r["caption"], str) for r in rows),
-          "beam_eval captions")
-    check(beam_search_fused.launches == 3, "K2 launches for 3 batches",
-          beam_search_fused.launches)
+          phase + " captions")
+    if captioner.beam_fn is beam_search_fused:
+        check(k2 == 3 and k1 == 0, "K2 launches for 3 batches", k2, k1)
+        results["fused_beam"]["launches_by_path"][phase] = k2
+    else:
+        check(k1 >= 3 and k2 == 0, "K1 launches for 3 batches", k1, k2)
+        results["fused_attention"]["launches_by_path"][phase] = k1
     words = [len(r["caption"].split()) for r in rows]
-    log("beam_eval", images=n, batch=IMAGES, batches=3,
-        k2_launches=beam_search_fused.launches, seconds=seconds,
-        seconds_per_caption=seconds / n,
+    log(phase, images=n, batch=IMAGES, batches=3, k1_launches=k1,
+        k2_launches=k2, int8_encoder=captioner.qresnet is not None,
+        seconds=seconds, seconds_per_caption=seconds / n,
         mean_words=float(np.mean(words)))
+
+
+def resnet101_sites():
+    """Every distinct convolution of ResNet-101 on a 224x224 image, as
+    (input HWC, kernel, Cout, stride, padding), in call order, recorded
+    on the meta device."""
+    import torch
+
+    from icd_tpu_torch.models.resnet import ResNet, resnet_forward
+
+    sites = []
+
+    def recording(x, w, stride=1, padding=0):
+        site = (tuple(x.shape[1:]), w.shape[2], w.shape[0], stride, padding)
+        if site not in sites:
+            sites.append(site)
+        return torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2), w, stride=stride,
+            padding=padding).permute(0, 2, 3, 1)
+
+    with torch.device("meta"):
+        resnet_forward(ResNet(), torch.empty(1, 224, 224, 3),
+                       conv=recording)
+    return sites
+
+
+def phase_int8_conv():
+    """conv2d_int8 on the card against the CPU and a float64 convolution
+    at every distinct ResNet-101 site (batch 2): equal int32 sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.ops.quant import conv2d_int8, gemm_layout, int8_conv
+
+    gen = torch.Generator().manual_seed(11)
+    sites = resnet101_sites()
+    checked = []
+    for (h, w, cin), k, cout, stride, pad in sites:
+        x = torch.randint(-127, 128, (2, h, w, cin), generator=gen,
+                          dtype=torch.int8)
+        wq = gemm_layout(torch.randint(-127, 128, (k, k, cin, cout),
+                                       generator=gen, dtype=torch.int8))
+        out = conv2d_int8(x.cuda(), wq.cuda(), stride, pad)
+        ref64 = F.conv2d(x.cuda().double().permute(0, 3, 1, 2),
+                         wq.cuda().double().permute(3, 2, 0, 1),
+                         stride=stride, padding=pad).permute(0, 2, 3, 1)
+        cpu = conv2d_int8(x, wq, stride, pad)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.int32, "int32 sums", out.dtype)
+        check(torch.equal(out.cpu(), cpu), "int8 conv card vs CPU",
+              (h, cin, k, cout, stride))
+        check(torch.equal(out.double(), ref64), "int8 conv vs float64",
+              (h, cin, k, cout, stride))
+        checked.append([h, cin, k, cout, stride])
+    # The dynamic (per-call quantized) convolution, once.
+    xf = torch.randn(2, 56, 56, 64, generator=gen)
+    wf = torch.randn(64, 64, 3, 3, generator=gen) * 0.05
+    dyn = int8_conv(xf.cuda(), wf.cuda(), 1, 1).cpu()
+    dyn_ref = int8_conv(xf, wf, 1, 1)
+    dyn_err = (dyn - dyn_ref).abs().max().item()
+    check(dyn_err <= 1e-5 * dyn_ref.abs().max().item(),
+          "dynamic int8_conv card vs CPU", dyn_err)
+    # One batch-64 site (layer 1's conv3), weights column-major (as the
+    # port stores them) and row-major, beside cuDNN's bf16 convolution.
+    x = torch.randint(-127, 128, (IMAGES, 56, 56, 64), generator=gen,
+                      dtype=torch.int8).cuda()
+    wq = torch.randint(-127, 128, (1, 1, 64, 256), generator=gen,
+                       dtype=torch.int8).cuda()
+    wcol = gemm_layout(wq)
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # NCHW view, NHWC memory
+    wb = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    ms = dict(column_major=time_ms(lambda: conv2d_int8(x, wcol)),
+              row_major=time_ms(lambda: conv2d_int8(x, wq.contiguous())),
+              cudnn_bf16=time_ms(lambda: F.conv2d(xb, wb)))
+    log("int8_conv", sites=len(checked), shapes=checked,
+        dynamic_err_vs_cpu=dyn_err,
+        dynamic_equal_to_cpu=bool(torch.equal(dyn, dyn_ref)),
+        timed_site=dict(images=IMAGES, hw=56, cin=64, cout=256),
+        timed_site_ms=ms, card=card_line())
+
+
+def op_split_ms(prof):
+    """Device ms by ATen op (the kernels each op launched itself)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type == DeviceType.CPU and us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def int8_block_errors(resnet, qresnet, imgs):
+    """Relative L2 error of the int8 trunk against the float one, f32,
+    block by block: each int8 block fed the float block's input (local)
+    and the int8 trunk's own output (cumulative). Tells a quantization
+    fault (a large local error) from a trunk that amplifies small ones."""
+    import torch
+
+    from icd_tpu_torch.models.resnet import (_bottleneck, batch_norm,
+                                             conv2d, max_pool)
+    from icd_tpu_torch.models.resnet_int8 import _qconv
+    from icd_tpu_torch.ops.image import normalize_imagenet
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def qblock(qb, x, stride):
+        h = torch.relu(_qconv(x, qb["conv1"]))
+        h = torch.relu(_qconv(h, qb["conv2"], stride=stride, padding=1))
+        h = _qconv(h, qb["conv3"])
+        if "downsample" in qb:
+            return torch.relu(h + _qconv(x, qb["downsample"], stride=stride))
+        return torch.relu(h + x)
+
+    local, cumulative = [], []
+    with torch.inference_mode():
+        x = normalize_imagenet(imgs)
+        f = batch_norm(conv2d(x, resnet.stem.conv, 2, 3),
+                       resnet.stem.bn).relu()
+        q = torch.relu(_qconv(x, qresnet["stem"], stride=2, padding=3))
+        stem = rel(q, f)
+        f, q = max_pool(f), max_pool(q)
+        for blocks, qblocks in zip(resnet.layers, qresnet["layers"]):
+            for block, qb in zip(blocks, qblocks):
+                nxt = _bottleneck(block, f, None)
+                local.append(rel(qblock(qb, f, block.stride), nxt))
+                q = qblock(qb, q, block.stride)
+                f = nxt
+            cumulative.append(rel(q, f))
+    local.sort()
+    return dict(stem=stem, local_min=local[0],
+                local_median=local[len(local) // 2], local_max=local[-1],
+                cumulative_after_each_stage=cumulative)
+
+
+def phase_int8_encoder(models):
+    """Calibrate and quantize; the int8 grid against the CPU and against
+    the float grid; int8 and float encoder ms. Returns the act_maxes."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from icd_tpu_torch.decoding.serve import (build_int8_backbone,
+                                              make_beam_captioner)
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.models.encoder import encoder_attention_forward_int8
+    from icd_tpu_torch.models.resnet_int8 import N_SITES_RESNET101, tree_to
+
+    encoder, decoder = models
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    qresnet, act_maxes = build_int8_backbone(
+        encoder, bf16, "cuda", calib_imgs=uint8_images(16, seed=1))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(act_maxes.shape == (N_SITES_RESNET101,)
+          and bool(np.isfinite(act_maxes).all()), "act_maxes",
+          act_maxes.shape)
+
+    # (a) the card against the CPU on the same tree and 2 images.
+    imgs2 = uint8_images(2, seed=8)
+    with torch.inference_mode():
+        grid = encoder_attention_forward_int8(qresnet, imgs2.cuda(), bf16)
+        cpu = encoder_attention_forward_int8(tree_to(qresnet, "cpu"), imgs2,
+                                             bf16)
+    diff = (grid.cpu().float() - cpu.float()).abs()
+    last = qresnet["layers"][-1][-1]["conv3"]
+    step = (1.0 / last["inv_in"]).item()
+    check(grid.shape == (2, 14, 14, ENC_DIM), "int8 grid shape", grid.shape)
+    check(diff.max().item() <= step, "int8 grid card vs CPU",
+          diff.max().item(), step)
+
+    # (b) and (c): batch 64, bf16, the int8 and the float encoder.
+    imgs = uint8_images(IMAGES, seed=3).cuda()
+    int8 = make_beam_captioner(None, decoder, START_ID, END_ID,
+                               beam_size=BEAMS, compute_dtype=bf16,
+                               device="cuda", qresnet=qresnet)
+    flt = make_beam_captioner(encoder, decoder, START_ID, END_ID,
+                              beam_size=BEAMS, compute_dtype=bf16,
+                              device="cuda")
+    gq, gf = int8.encode(imgs).float(), flt.encode(imgs).float()
+    check(bool(gq.isfinite().all()), "finite int8 grid")
+    rel_l2 = ((gq - gf).norm() / gf.norm()).item()
+    blocks = int8_block_errors(encoder.resnet, qresnet, imgs2.cuda())
+    ms, peak = {}, {}
+    for name, cap in (("int8", int8), ("float", flt)):
+        ms[name] = time_ms(lambda: cap.encode(imgs), iters=10, warmup=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        cap.encode(imgs)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - before
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        int8.encode(imgs)
+        torch.cuda.synchronize()
+    split = op_split_ms(prof)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "profile_int8_encoder.txt"), "w") as f:
+        for name, v in split.items():
+            f.write("{:12.3f} ms  {}\n".format(v, name))
+    groups = dict(int_mm=0.0, copies=0.0, elementwise=0.0)
+    for name, v in split.items():
+        if name == "aten::_int_mm":
+            groups["int_mm"] += v
+        elif name in ("aten::cat", "aten::copy_", "aten::fill_"):
+            groups["copies"] += v
+        else:
+            groups["elementwise"] += v
+    log("int8_encoder", calibration_images=16, sites=len(act_maxes),
+        build_seconds=build_s, grid_elements_differing_card_vs_cpu=int(
+            (diff > 0).sum()), grid_max_err_card_vs_cpu=diff.max().item(),
+        last_site_step=step, rel_l2_vs_float_bf16=rel_l2,
+        rel_l2_f32_by_block=blocks,
+        int8_encoder_ms=ms["int8"], float_encoder_ms=ms["float"],
+        int8_encoder_peak_bytes=peak["int8"],
+        float_encoder_peak_bytes=peak["float"],
+        int8_device_ms_by_group=groups,
+        int8_device_ms_top_ops=dict(list(split.items())[:12]),
+        card=card_line())
+    return act_maxes
+
+
+def greedy_steps(tokens, max_len):
+    """Decode steps the greedy loop ran: up to the last caption's <end>."""
+    import torch
+
+    ended = tokens == END_ID
+    first = torch.where(ended.any(1), ended.int().argmax(1) + 1, max_len)
+    return int(first.max())
+
+
+def timed_serve(captioner, imgs, counters):
+    """One warmed-up batch through ``captioner``: (output, encoder ms,
+    decode ms, launches of each counter, peak bytes). The counters are
+    set to 0 just before the batch and read just after it."""
+    import torch
+
+    captioner(imgs)  # warm-up: cuBLASLt and cuDNN plans, kernel load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    grid = captioner.encode(imgs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = captioner.decode(grid)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = [c.launches for c in counters]
+    return (out, (t1 - t0) * 1e3, (t2 - t1) * 1e3, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def check_greedy(out, n, max_len, what):
+    """Shapes, finite alphas, step 1's alphas softmax rows; returns how
+    many captions finished."""
+    toks, alphas = out
+    check(toks.shape == (n, max_len) and alphas.shape == (n, max_len, PIX),
+          what + " shapes", toks.shape, alphas.shape)
+    check(bool(alphas.isfinite().all()), what + " finite alphas")
+    ended = (toks == END_ID).any(1)
+    sums = alphas.sum(-1)
+    check(bool(((sums - 1).abs()[:, 0] < 1e-3).all()),
+          what + " step-1 alphas are softmax rows")
+    return int(ended.sum())
+
+
+def phase_greedy(models, results):
+    import torch
+
+    from icd_tpu_torch.decoding.serve import make_attention_captioner
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+
+    encoder, decoder = models
+    max_len = 25
+    f32 = make_attention_captioner(encoder, decoder, START_ID, END_ID,
+                                   max_len=max_len,
+                                   compute_dtype=torch.float32,
+                                   device="cuda")
+    check(not torch.backends.cudnn.allow_tf32, "TF32 off for f32")
+    grid = f32.encode(uint8_images(8, seed=2))
+    fused_attention.launches = 0
+    toks, alphas = f32.decode(grid)
+    torch.cuda.synchronize()
+    launches = fused_attention.launches
+    steps = greedy_steps(toks, max_len)
+    check(launches == steps, "f32 greedy K1 launches vs steps", launches,
+          steps)
+    with plain_attention():
+        ref_toks, ref_alphas = f32.decode(grid)
+    check(fused_attention.launches == launches, "K1 launched by plain run")
+    check(torch.equal(toks, ref_toks), "greedy tokens: K1 vs plain")
+    f32_alpha_err = (alphas - ref_alphas).abs().max().item()
+    check(f32_alpha_err <= 5e-6, "greedy alphas: K1 vs plain", f32_alpha_err)
+
+    bf16 = make_attention_captioner(encoder, decoder, START_ID, END_ID,
+                                    max_len=max_len,
+                                    compute_dtype=torch.bfloat16,
+                                    device="cuda")
+    imgs = uint8_images(IMAGES, seed=3).cuda()
+    out, enc_ms, dec_ms, (k1,), peak = timed_serve(bf16, imgs,
+                                                    [fused_attention])
+    steps64 = greedy_steps(out[0], max_len)
+    check(k1 > 0 and k1 == steps64, "bf16 greedy K1 launches vs steps", k1,
+          steps64)
+    finished = check_greedy(out, IMAGES, max_len, "bf16 greedy")
+    results["fused_attention"]["launches_by_path"]["greedy_bf16"] = k1
+    log("greedy", f32=dict(images=8, steps=steps, k1_launches=launches,
+                           alpha_err_vs_plain=f32_alpha_err),
+        images=IMAGES, max_len=max_len, encoder_ms=enc_ms, decode_ms=dec_ms,
+        steps=steps64, k1_launches=k1,
+        captions_per_s=IMAGES / ((enc_ms + dec_ms) / 1e3),
+        peak_memory_bytes=peak, finished=finished, card=card_line())
+
+
+def phase_serve_int8_greedy(models, act_maxes, results):
+    import torch
+
+    from icd_tpu_torch.decoding.serve import make_int8_attention_captioner
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+    from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
+    from icd_tpu_torch.ops.quant import int_mm
+
+    encoder, decoder = models
+    max_len = 25
+    imgs = uint8_images(IMAGES, seed=3).cuda()
+    runs = {}
+    for int8_decoder in (False, True):
+        cap = make_int8_attention_captioner(
+            encoder, decoder, START_ID, END_ID, max_len=max_len,
+            compute_dtype=torch.bfloat16, act_maxes=act_maxes,
+            int8_decoder=int8_decoder, device="cuda")
+        out, enc_ms, dec_ms, (k1,), peak = timed_serve(cap, imgs,
+                                                        [fused_attention])
+        steps = greedy_steps(out[0], max_len)
+        name = "int8_decoder" if int8_decoder else "float_decoder"
+        check(k1 > 0 and k1 == steps, name + " K1 launches vs steps", k1,
+              steps)
+        finished = check_greedy(out, IMAGES, max_len, name)
+        results["fused_attention"]["launches_by_path"][
+            "serve_int8_greedy_bf16/" + name] = k1
+        runs[name] = dict(encoder_ms=enc_ms, decode_ms=dec_ms, steps=steps,
+                          k1_launches=k1, finished=finished,
+                          captions_per_s=IMAGES / ((enc_ms + dec_ms) / 1e3),
+                          peak_memory_bytes=peak)
+    # qmatmul's int32 sums at the W8A8 decoder's shapes: LSTM input
+    # (embedding and context segments), recurrent, fc; 5 rows; 9,490
+    # columns (not a multiple of 8).
+    gen = torch.Generator().manual_seed(12)
+    shapes = [(IMAGES, EMBED, 4 * DEC_DIM), (IMAGES, ENC_DIM, 4 * DEC_DIM),
+              (IMAGES, DEC_DIM, 4 * DEC_DIM), (IMAGES, DEC_DIM, VOCAB),
+              (5, DEC_DIM, VOCAB), (IMAGES, DEC_DIM, 9490)]
+    for m, k, n in shapes:
+        x = torch.randn(m, k, generator=gen)
+        wq, ws = quantize_linear(torch.randn(k, n, generator=gen) * 0.05)
+        xq = torch.randint(-127, 128, (m, k), generator=gen,
+                           dtype=torch.int8)
+        acc = int_mm(xq.cuda(), wq.cuda(), n).cpu()
+        check(torch.equal(acc, int_mm(xq, wq, n)), "int_mm card vs CPU",
+              (m, k, n))
+        check(torch.equal(acc.long(), xq.long() @ wq[:, :n].long()),
+              "int_mm vs int64 product", (m, k, n))
+        out = qmatmul(x.cuda(), wq.cuda(), ws.cuda()).cpu()
+        check(torch.equal(out, qmatmul(x, wq, ws)), "qmatmul card vs CPU",
+              (m, k, n))
+    log("serve_int8_greedy_bf16", images=IMAGES, max_len=max_len, **runs,
+        qmatmul_shapes_equal_to_cpu=shapes, card=card_line())
+
+
+def phase_serve_int8_beam(models, act_maxes, results):
+    import functools
+
+    import torch
+
+    from icd_tpu_torch.decoding.beam import beam_search_batched
+    from icd_tpu_torch.decoding.serve import make_beam_captioner
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+    from icd_tpu_torch.ops.fused_beam import beam_search_fused
+
+    encoder, decoder = models
+    imgs = uint8_images(IMAGES, seed=3).cuda()
+    loops = (("per_step", beam_search_batched),
+             ("fused", beam_search_fused),
+             ("per_step_int8_grid",
+              functools.partial(beam_search_batched, int8_grid=True)))
+    runs, captioners = {}, {}
+    for name, beam_fn in loops:
+        cap = make_beam_captioner(encoder, decoder, START_ID, END_ID,
+                                  beam_size=BEAMS,
+                                  compute_dtype=torch.bfloat16,
+                                  device="cuda", beam_fn=beam_fn,
+                                  act_maxes=act_maxes)
+        out, enc_ms, beam_ms, (k1, k2), peak = timed_serve(
+            cap, imgs, [fused_attention, beam_search_fused])
+        if name == "fused":
+            check(k2 == 1 and k1 == 0, "int8 fused launches", k1, k2)
+            results["fused_beam"]["launches_by_path"][
+                "serve_int8_beam_bf16/" + name] = k2
+        else:
+            check(k1 > 0 and k1 == out["steps"] and k2 == 0,
+                  name + " K1 launches vs steps", k1, out["steps"], k2)
+            results["fused_attention"]["launches_by_path"][
+                "serve_int8_beam_bf16/" + name] = k1
+        check(out["seq"].shape == (IMAGES, 52), name + " seq shape")
+        check(bool((out["seq"][:, 0] == START_ID).all()),
+              name + " seq starts with start")
+        check(bool(out["alphas"].isfinite().all()), name + " finite alphas")
+        runs[name] = dict(encoder_ms=enc_ms, beam_ms=beam_ms,
+                          steps=out["steps"], k1_launches=k1,
+                          k2_launches=k2,
+                          captions_per_s=IMAGES / ((enc_ms + beam_ms) / 1e3),
+                          peak_memory_bytes=peak,
+                          found=int(out["found"].sum()))
+        captioners[name] = cap
+    log("serve_int8_beam_bf16", images=IMAGES, beams=BEAMS, **runs,
+        card=card_line())
+    return captioners["per_step"]
 
 
 def main():
@@ -751,13 +1275,19 @@ def main():
     results = {}
     phase_build()
     phase_k1(results)
+    phase_int8_conv()
     models = full_width_models()
     phase_k2(phase_path_f32(models), results)
     phase_profile(*phase_serve_bf16(models, results))
     fused = phase_serve_fused_bf16(models, results)
-    phase_beam_eval(fused[0])
+    phase_beam_eval(fused[0], results)
     phase_profile(*fused, phase="profile_fused",
                   table="profile_fused_beam.txt")
+    act_maxes = phase_int8_encoder(models)
+    phase_greedy(models, results)
+    phase_serve_int8_greedy(models, act_maxes, results)
+    phase_beam_eval(phase_serve_int8_beam(models, act_maxes, results),
+                    results, phase="beam_eval_int8")
 
     k1 = dict(name="fused_attention", route="cuda",
               source="icd_tpu_torch/csrc/fused_attention.cu",

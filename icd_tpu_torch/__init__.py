@@ -12,5 +12,7 @@ name. Public functions keep the JAX layouts: NHWC uint8 images in, a
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (see ``device.resolve_device``); with no card they raise. Every TPU
 kernel on the path is a hand-written CUDA kernel under ``csrc/`` with a
-plain PyTorch version beside it, which runs only for CPU tensors.
+plain PyTorch version beside it, which runs only for CPU tensors. The
+int8 products (an XLA product in ``icd_tpu``, not a kernel of its own)
+are ``torch._int_mm`` on both devices (``ops/quant.py``).
 """

@@ -1,22 +1,30 @@
 """Batched beam-search captioning of the val split (the port of
-``tools/beam_eval.py``'s float path, :129-162)::
+``tools/beam_eval.py``)::
 
     python -m icd_tpu_torch.beam_eval <checkpoint> [--beam_size 5]
         [--batch_size 64] [--max_caption_length -1]
         [--out eval_data/<name>_beam.json] [--dtype bf16|f32] [--fused]
+        [--int8 | --no-int8] [--act_maxes PATH] [--int8_grid]
         [--device cuda|cpu]
 
 Captions every unique val image at a large batch size and writes a
 COCO-results JSON (``[{"image_id": ..., "caption": ...}]``), as the JAX
 tool does. ``<checkpoint>`` is a ``.ckpt`` that ``icd_tpu`` wrote,
-relative to ``$ICD_TPU_ROOT/checkpoints``. ``--fused`` decodes each batch
-with K2 (``ops.fused_beam.beam_search_fused``: the whole beam search in
-one launch) instead of the per-step loop. ``--dtype f32`` turns TF32
-off. The encoder is the float one: the JAX tool's default static-int8
-encoder (``--int8``) and ``--int8_grid`` are not ported yet and raise.
+relative to ``$ICD_TPU_ROOT/checkpoints``. The encoder is the
+static-int8 backbone by default (``--int8``), calibrated on the first
+val batch; ``--act_maxes PATH`` loads the maxes from a ``.npy`` if it
+exists and writes it after calibrating otherwise (the file is the JAX
+tool's format). ``--no-int8 --dtype f32`` is the reference-numerics
+path. ``--fused`` decodes each batch with K2
+(``ops.fused_beam.beam_search_fused``: the whole beam search in one
+launch) instead of the per-step loop; ``--int8_grid`` keeps the grid
+int8 inside the per-step loop and cannot go with ``--fused``. The whole
+checkpoint is cast to ``--dtype`` first, as the JAX tool does.
+``--dtype f32`` turns TF32 off.
 """
 
 import argparse
+import functools
 import json
 import os
 
@@ -64,19 +72,25 @@ def main(argv=None):
     parser.add_argument("--fused", action="store_true",
                         help="decode with K2, the whole beam search in "
                              "one kernel launch (ops/fused_beam.py)")
-    parser.add_argument("--int8", action="store_true",
-                        help="static-int8 encoder: not ported yet")
+    parser.add_argument("--int8", action=argparse.BooleanOptionalAction,
+                        default=True,
+                        help="static-calibration int8 encoder backbone, "
+                             "calibrated on the first val batch (default "
+                             "on, as in tools/beam_eval.py)")
     parser.add_argument("--int8_grid", action="store_true",
-                        help="int8 grid in the beam loop: not ported yet")
+                        help="per-step loop only: int8 encoder grid and "
+                             "attention projection inside the loop")
+    parser.add_argument("--act_maxes", type=str, default=None,
+                        help="with --int8: .npy of calibrated activation "
+                             "maxes; loaded if present, else written "
+                             "after calibration")
     parser.add_argument("--device", type=str, default=None,
                         choices=["cuda", "cpu"],
                         help="where to run (default: cuda)")
     args = parser.parse_args(argv)
-    if args.int8 or args.int8_grid:
-        raise NotImplementedError(
-            "--int8 and --int8_grid are not ported to icd_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 3: the int8 encoder); the port "
-            "captions with the float encoder")
+    if args.fused and args.int8_grid:
+        parser.error("--int8_grid applies to the per-step beam loop only; "
+                     "it cannot be combined with --fused")
 
     from .checkpoint import load_checkpoint, unpack_checkpoint
     from .data.dataset import COCODataset
@@ -89,16 +103,33 @@ def main(argv=None):
     from .vocabulary import END_TOKEN, START_TOKEN
 
     device = resolve_device(args.device)
+    dtype = dtype_from_name(args.dtype)
     _, enc_tree, dec_tree, _, _, _ = unpack_checkpoint(load_checkpoint(args))
+    encoder = encoder_from_jax(enc_tree).to(dtype)
     dataset = COCODataset("val", caption_max_len=args.max_caption_length)
     vocab = dataset.vocab
     img_ids = dataset.img_ids  # one entry per unique image
     batch_size = max(1, min(args.batch_size, len(img_ids)))
+    if args.fused:
+        beam_fn = beam_search_fused
+    else:
+        beam_fn = functools.partial(beam_search_batched,
+                                    int8_grid=args.int8_grid)
+    int8 = {}
+    if args.int8:
+        if args.act_maxes and os.path.exists(args.act_maxes):
+            int8["act_maxes"] = np.load(args.act_maxes)
+            print("Loaded act_maxes from {}".format(args.act_maxes))
+        else:
+            int8["calib_imgs"] = dataset.load_image_batch(
+                img_ids[:batch_size])
     captioner = make_beam_captioner(
-        encoder_from_jax(enc_tree), decoder_from_jax(dec_tree),
-        vocab(START_TOKEN), vocab(END_TOKEN), beam_size=args.beam_size,
-        compute_dtype=dtype_from_name(args.dtype), device=device,
-        beam_fn=beam_search_fused if args.fused else beam_search_batched)
+        encoder, decoder_from_jax(dec_tree), vocab(START_TOKEN),
+        vocab(END_TOKEN), beam_size=args.beam_size, compute_dtype=dtype,
+        device=device, beam_fn=beam_fn, **int8)
+    if args.act_maxes and "calib_imgs" in int8:
+        np.save(args.act_maxes, np.asarray(captioner.act_maxes))
+        print("Saved act_maxes to {}".format(args.act_maxes))
     results = caption_images(captioner, img_ids, dataset.load_image_batch,
                              vocab, batch_size)
 

@@ -29,9 +29,19 @@ import numpy as np
 import torch
 
 from ..models.attention import decode_step, init_hidden_state
+from ..ops.quant import div
 
 MAX_STEPS = 51  # reference: breaks when step > 50 (gen_captions.py:119)
 NEG_INF = -1e9
+
+
+def _quantize_sym(x):
+    """Symmetric int8 per image over (P, D) (beam.py:39): (q, scale
+    (B, 1, 1) f32)."""
+    s = div(x.float().abs().amax(dim=(1, 2), keepdim=True),
+            127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(x.float() / s), -127, 127)
+    return q.to(torch.int8), s
 
 
 def _top_k(flat, k):
@@ -55,11 +65,15 @@ def _where_running(running, new, old):
 
 @torch.no_grad()
 def beam_search_batched(decoder, encoder_grids, beam_size, start_id, end_id,
-                        max_steps=MAX_STEPS):
+                        max_steps=MAX_STEPS, int8_grid=False):
     """Beam-search decode a batch of (B, gh, gw, D) or (B, P, D) grids
     (beam.py:50 and :251).
 
     The grids and the decoder are used at their own dtype and device.
+    ``int8_grid`` keeps the grid and its attention projection as
+    per-image symmetric int8 and dequantizes both inside each step as
+    ``(q.float() * s).to(grid dtype)`` (beam.py:84-86, :132-141); h0 and
+    c0 come from the float grid, as there.
     Returns a dict of tensors on that device:
         seq: (B, max_steps + 1) best complete sequence per image,
             starting with start_id, padded with end_id.
@@ -78,6 +92,9 @@ def beam_search_batched(decoder, encoder_grids, beam_size, start_id, end_id,
     n_rows = max_steps + 1
     # One projection per image, never repeated per beam (beam.py:76-81).
     att_enc = decoder.attention.enc_att(enc)
+    if int8_grid:
+        enc_q, enc_s = _quantize_sym(enc)
+        att_q, att_s = _quantize_sym(att_enc)
     h0, c0 = init_hidden_state(decoder, enc)
     h = h0[:, None].expand(b, k, h0.shape[-1]).contiguous()
     c = c0[:, None].expand(b, k, c0.shape[-1]).contiguous()
@@ -110,8 +127,13 @@ def beam_search_batched(decoder, encoder_grids, beam_size, start_id, end_id,
             break
         first = step == 1
         emb = decoder.embedding(prev_words)  # (B, k, E)
+        if int8_grid:
+            enc_t = (enc_q.float() * enc_s).to(enc.dtype)
+            att_t = (att_q.float() * att_s).to(enc.dtype)
+        else:
+            enc_t, att_t = enc, att_enc
         new_h, new_c, logits, alpha = decode_step(
-            decoder, enc, att_enc, emb.reshape(b * k, -1),
+            decoder, enc_t, att_t, emb.reshape(b * k, -1),
             h.reshape(b * k, -1), c.reshape(b * k, -1), rows_per_image=k)
         new_h = new_h.view(b, k, -1)
         new_c = new_c.view(b, k, -1)

@@ -1,8 +1,11 @@
-"""Attention encoder head (port of ``icd_tpu/models/encoder.py:47-72``).
+"""Attention encoder head (port of ``icd_tpu/models/encoder.py:47-72``
+and :96-106).
 
 The ResNet-101 grid adaptively pooled to 14x14x2048 for the
-soft-attention decoder (reference: models/encoder.py:72-110). The
-baseline head (global pool + Linear) comes with the baseline slice.
+soft-attention decoder (reference: models/encoder.py:72-110), over the
+float backbone or the static-int8 one (``resnet_int8.py``). The
+baseline head (global pool + Linear, and its int8 form) comes with the
+baseline slice.
 """
 
 import torch
@@ -10,6 +13,7 @@ import torch.nn as nn
 
 from ..ops.image import normalize_imagenet
 from .resnet import adaptive_avg_pool2d, init_resnet101, resnet_forward
+from .resnet_int8 import resnet_int8_forward
 
 ENCODER_DIM = 2048
 ATTENTION_GRID = (14, 14)
@@ -37,4 +41,14 @@ def encoder_attention_forward(encoder, imgs, compute_dtype=None,
     """
     x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
     feats = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype)
+    return adaptive_avg_pool2d(feats, grid)
+
+
+def encoder_attention_forward_int8(qresnet, imgs, compute_dtype=torch.bfloat16,
+                                   grid=ATTENTION_GRID):
+    """``encoder_attention_forward`` over the static-int8 backbone
+    (encoder.py:96): ``qresnet`` from ``resnet_int8.quantize_resnet``."""
+    x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
+    feats = resnet_int8_forward(qresnet, x.to(compute_dtype),
+                                out_dtype=compute_dtype)
     return adaptive_avg_pool2d(feats, grid)

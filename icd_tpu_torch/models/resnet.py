@@ -63,8 +63,27 @@ def batch_norm(x, bn, compute_dtype=None):
 
 
 def max_pool(x, window=3, stride=2, padding=1):
-    """Max pooling over NHWC spatial dims, -inf padded (resnet.py:82)."""
-    return _nhwc(F.max_pool2d(_nchw(x), window, stride, padding))
+    """Max pooling over NHWC spatial dims, -inf padded (resnet.py:82).
+
+    An integer tensor is padded with its dtype's minimum, as there, and
+    pooled as the maximum over the window's shifted, strided slices:
+    ATen's pooling takes no int8 on CUDA and fails on the CPU at real
+    sizes.
+    """
+    if x.is_floating_point():
+        return _nhwc(F.max_pool2d(_nchw(x), window, stride, padding))
+    _, h, w, _ = x.shape
+    x = F.pad(x, (0, 0, padding, padding, padding, padding),
+              value=torch.iinfo(x.dtype).min)
+    ho = (h + 2 * padding - window) // stride + 1
+    wo = (w + 2 * padding - window) // stride + 1
+    out = None
+    for i in range(window):
+        for j in range(window):
+            s = x[:, i:i + stride * (ho - 1) + 1:stride,
+                  j:j + stride * (wo - 1) + 1:stride]
+            out = s if out is None else torch.maximum(out, s)
+    return out
 
 
 def adaptive_avg_pool2d(x, out_hw):
@@ -174,41 +193,46 @@ def _w(p, compute_dtype):
     return p if compute_dtype is None else p.to(compute_dtype)
 
 
-def _bottleneck(block, x, compute_dtype):
+def _bottleneck(block, x, compute_dtype, conv=conv2d):
     """1x1 -> 3x3(stride) -> 1x1 bottleneck with projection shortcut."""
-    out = batch_norm(conv2d(x, _w(block.conv1, compute_dtype)),
+    out = batch_norm(conv(x, _w(block.conv1, compute_dtype)),
                      block.bn1, compute_dtype).relu()
-    out = batch_norm(conv2d(out, _w(block.conv2, compute_dtype),
-                            stride=block.stride, padding=1),
+    out = batch_norm(conv(out, _w(block.conv2, compute_dtype),
+                          stride=block.stride, padding=1),
                      block.bn2, compute_dtype).relu()
-    out = batch_norm(conv2d(out, _w(block.conv3, compute_dtype)),
+    out = batch_norm(conv(out, _w(block.conv3, compute_dtype)),
                      block.bn3, compute_dtype)
     if block.downsample is not None:
         shortcut = batch_norm(
-            conv2d(x, _w(block.downsample.conv, compute_dtype),
-                   stride=block.stride),
+            conv(x, _w(block.downsample.conv, compute_dtype),
+                 stride=block.stride),
             block.downsample.bn, compute_dtype)
     else:
         shortcut = x
     return (out + shortcut).relu()
 
 
-def resnet_forward(resnet, x, compute_dtype=None):
+def resnet_forward(resnet, x, compute_dtype=None, conv=None):
     """Run the backbone in eval mode: NHWC in, NHWC features at stride 32.
 
     (resnet.py:230 with train=False.) ``compute_dtype`` casts the input
     and the parameters but not the BN statistics; a module already at
     that dtype (``cast_keep_bn_stats``) is used without a copy. With no
-    ``compute_dtype`` the input takes the weights' dtype.
+    ``compute_dtype`` the input takes the weights' dtype. ``conv``
+    replaces ``conv2d`` (NHWC x OIHW, same arguments): calibration
+    records each convolution's input through it, and
+    ``ops.quant.int8_conv`` plugs in there.
     """
+    if conv is None:
+        conv = conv2d
     if compute_dtype is None:
         x = x.to(resnet.stem.conv.dtype)
     else:
         x = x.to(compute_dtype)
-    out = conv2d(x, _w(resnet.stem.conv, compute_dtype), stride=2, padding=3)
+    out = conv(x, _w(resnet.stem.conv, compute_dtype), stride=2, padding=3)
     out = batch_norm(out, resnet.stem.bn, compute_dtype).relu()
     out = max_pool(out, window=3, stride=2, padding=1)
     for blocks in resnet.layers:
         for block in blocks:
-            out = _bottleneck(block, out, compute_dtype)
+            out = _bottleneck(block, out, compute_dtype, conv)
     return out

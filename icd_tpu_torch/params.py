@@ -13,6 +13,14 @@ tree). Layouts:
 Shapes are read off the tree, so any ResNet depth or decoder width
 converts. ``*_to_jax`` are the inverses and return float32 numpy trees.
 Converted modules live on the CPU; move them with ``.to(device)``.
+
+The quantized trees (``quantize_resnet``'s and
+``quantize_attention_decoder``'s) are dicts of tensors with the JAX
+tree's keys and values; ``qresnet_*`` and ``qdecoder_*`` convert them
+both ways, int8 kept int8. Their int8 weights keep the JAX layout, HWIO
+and (I, O), stored column-major for cuBLASLt, and the decoder's have
+their columns padded to a multiple of 8 (``ops/qlinear.py``), which
+``qdecoder_to_jax`` slices off.
 """
 
 import numpy as np
@@ -21,6 +29,7 @@ import torch
 from .models.attention import AttentionDecoder
 from .models.encoder import EncoderAttention
 from .models.resnet import ResNet
+from .ops.quant import gemm_layout, pad_columns
 
 
 def _tensor(x):
@@ -162,3 +171,51 @@ def decoder_to_jax(dec):
         "fc": _linear_to(dec.fc),
         "embedding": _numpy(dec.embedding.weight),
     }
+
+
+# ---------------------------------------------------------------------------
+# Quantized trees
+# ---------------------------------------------------------------------------
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _leaf_to(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def qresnet_from_jax(tree):
+    """The port's int8 ResNet tree from ``icd_tpu``'s ``quantize_resnet``
+    tree, on the CPU."""
+    def leaf(x):
+        t = _tensor(x)
+        return gemm_layout(t) if t.dtype == torch.int8 else t
+    return _map(leaf, tree)
+
+
+def qresnet_to_jax(tree):
+    return _map(_leaf_to, tree)
+
+
+_QPAIRS = (("lstm", "wiq", "wis"), ("lstm", "whq", "whs"), ("fc", "wq", "ws"))
+
+
+def qdecoder_from_jax(tree):
+    """The port's int8 decoder tree from ``icd_tpu``'s
+    ``quantize_attention_decoder`` tree, on the CPU."""
+    out = _map(_tensor, tree)
+    for part, wq, _ in _QPAIRS:
+        out[part][wq] = pad_columns(out[part][wq])
+    return out
+
+
+def qdecoder_to_jax(tree):
+    out = _map(_leaf_to, tree)
+    for part, wq, ws in _QPAIRS:
+        out[part][wq] = out[part][wq][:, :len(out[part][ws])].copy()
+    return out

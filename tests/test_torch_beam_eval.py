@@ -8,7 +8,13 @@ modules) vs icd_tpu's (tools/beam_eval.py), f32 on the CPU.
   from one ``.ckpt`` saved by ``icd_tpu`` (a small ResNet and a steered
   small decoder), at ``--batch_size 2`` so the last of the fixture's
   three val images is a padded batch. The port runs in a subprocess that
-  never imports jax, optax or icd_tpu.
+  never imports jax, optax or icd_tpu;
+- with the int8 encoder, the default of both tools, and with
+  ``--int8_grid``: the JAX tool calibrates and writes ``--act_maxes F``,
+  the port loads F and writes the same JSON (with and without
+  ``--fused``), and the port's own calibration, written to another
+  file, agrees with F within rtol 1e-5 (the float convolutions sum in
+  another order); ``--int8_grid --fused`` is refused.
 """
 
 import json
@@ -76,16 +82,48 @@ def test_beam_eval_cli_matches_tools_beam_eval(use_coco_root, tmp_path):
     assert all(r["caption"] for r in ref)
     for extra in ([], ["--fused"]):
         out_json = str(tmp_path / "port{}.json".format(len(extra)))
-        stdout = _run(common + extra + ["--device", "cpu", "--out",
-                                        out_json], root, module=True)
+        stdout = _run(common + extra + ["--no-int8", "--device", "cpu",
+                                        "--out", out_json], root,
+                      module=True)
         assert stdout.strip().splitlines()[-1] == "FOREIGN []"
         with open(out_json) as f:
             assert json.load(f) == ref, extra
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--int8_grid"])
-def test_beam_eval_int8_raises(flag):
+def test_beam_eval_int8_raises(use_coco_root, tmp_path, flag):
+    """The int8 flags, which raised before the int8 encoder was ported,
+    now run and caption as the JAX tool does."""
     from icd_tpu_torch.beam_eval import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["x.ckpt", flag, "--device", "cpu"])
+    root = use_coco_root
+    vocab = load_vocab()
+    dec = _decoder(len(vocab), vocab(END_TOKEN))
+    name = _save_ckpt({"resnet": small_resnet_tree()}, dec)
+    act_maxes = str(tmp_path / "act_maxes.npy")
+    common = [os.path.basename(name), "--beam_size", "3", "--batch_size",
+              "2", "--dtype", "f32", flag, "--act_maxes", act_maxes]
+    ref_json = str(tmp_path / "ref.json")
+    stdout = _run(common + ["--out", ref_json], root, module=False)
+    assert "Saved act_maxes" in stdout
+    with open(ref_json) as f:
+        ref = json.load(f)
+    assert [r["image_id"] for r in ref] == [11, 12, 13]
+    runs = [[], ["--fused"]] if flag == "--int8" else [[]]
+    for extra in runs:
+        out_json = str(tmp_path / "port{}.json".format(len(extra)))
+        stdout = _run(common + extra + ["--device", "cpu", "--out",
+                                        out_json], root, module=True)
+        assert "Loaded act_maxes" in stdout
+        assert stdout.strip().splitlines()[-1] == "FOREIGN []"
+        with open(out_json) as f:
+            assert json.load(f) == ref, extra
+    if flag == "--int8":
+        own = str(tmp_path / "own.npy")
+        _run(common[:-1] + [own, "--device", "cpu", "--out",
+                            str(tmp_path / "own.json")], root, module=True)
+        np.testing.assert_allclose(np.load(own), np.load(act_maxes),
+                                   rtol=1e-5)
+    else:
+        with pytest.raises(SystemExit):
+            main(["x.ckpt", flag, "--fused", "--device", "cpu"])

@@ -19,10 +19,13 @@ from the same bf16 operands, only the sums' order differs). K2's phase
 clock within 10 % of CUDA events around the same launch (the card sleeps
 while the host sets the launch up, so the events time only the launch),
 and K1's likewise: the span from its first block's start to its last
-block's end.
+block's end. The int8 products (``torch._int_mm``, cuBLASLt) sum
+integers: card and CPU give the same int32 sums, and the int8 encoder
+the same grid.
 """
 
 import contextlib
+import functools
 import math
 
 import pytest
@@ -30,16 +33,20 @@ import torch
 
 import icd_tpu_torch.models.attention as attention
 from icd_tpu_torch.decoding.beam import beam_search_batched
-from icd_tpu_torch.decoding.serve import make_beam_captioner
+from icd_tpu_torch.decoding.serve import (make_beam_captioner,
+                                          make_int8_attention_captioner)
 from icd_tpu_torch.models.attention import (AttentionDecoderParams,
                                             init_attention_decoder)
 from icd_tpu_torch.models.encoder import EncoderAttention
 from icd_tpu_torch.models.resnet import init_resnet
+from icd_tpu_torch.models.resnet_int8 import calibrate_act_maxes
 from icd_tpu_torch.ops import fused_beam
 from icd_tpu_torch.ops.fused_attention import (fused_attention,
                                                fused_attention_reference)
 from icd_tpu_torch.ops.fused_beam import (beam_search_fused,
                                           beam_search_fused_reference)
+from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
+from icd_tpu_torch.ops.quant import conv2d_int8, gemm_layout, int_mm
 from icd_tpu_torch.testing import steered_decoder
 
 
@@ -403,6 +410,99 @@ def test_fused_captioner_on_card_matches_cpu(card):
     outs = [make_beam_captioner(encoder, decoder, 57, 58, beam_size=3,
                                 compute_dtype=torch.float32, device=dev,
                                 beam_fn=beam_search_fused)(imgs)
+            for dev in (card, "cpu")]
+    for key in ("seq", "seq_len", "found"):
+        assert torch.equal(outs[0][key].cpu(), outs[1][key]), key
+    torch.testing.assert_close(outs[0]["alphas"].cpu(), outs[1]["alphas"],
+                               atol=1e-4, rtol=0)
+
+
+def test_k1_one_row_per_image_at_serving_shapes(card):
+    """Greedy decoding's shape: 64 images, one row each, P=196, D=2048,
+    A=H=512, f32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _k1_against_plain(card, (64, 1, 196, 2048, 512, 512), dtype, seed=7)
+
+
+# (B, H, W, Cin, kernel, Cout, stride, padding): the stem (K = 147
+# padded to 152), 1x1 and 3x3 sites, a 1x1 stride-2 downsample, and
+# widths that are not multiples of 8 (padded for cuBLASLt).
+INT8_CONV_SHAPES = [
+    (2, 224, 224, 3, 7, 64, 2, 3), (2, 56, 56, 256, 1, 64, 1, 0),
+    (2, 56, 56, 128, 3, 128, 2, 1), (2, 14, 14, 256, 3, 256, 1, 1),
+    (2, 28, 28, 512, 1, 1024, 2, 0), (3, 9, 9, 12, 3, 4, 1, 1),
+    (1, 4, 4, 20, 1, 5, 1, 0)]
+
+
+@pytest.mark.parametrize("shape", INT8_CONV_SHAPES)
+def test_conv2d_int8_card_equals_cpu(card, shape):
+    b, h, w, cin, k, cout, stride, pad = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                      dtype=torch.int8)
+    wq = gemm_layout(torch.randint(-127, 128, (k, k, cin, cout),
+                                   generator=gen, dtype=torch.int8))
+    out = conv2d_int8(x.to(card), wq.to(card), stride, pad)
+    assert out.dtype == torch.int32
+    assert torch.equal(out.cpu(), conv2d_int8(x, wq, stride, pad))
+
+
+# (M, K, N): rows fewer than 17, N not a multiple of 8, the decoder's
+# LSTM and fc shapes at batch 64.
+QMM_SHAPES = [(5, 512, 10000), (16, 48, 97), (64, 2048, 2048),
+              (64, 512, 9490), (17, 20, 9)]
+
+
+@pytest.mark.parametrize("shape", QMM_SHAPES)
+def test_qmatmul_card_equals_cpu(card, shape):
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen)
+    wq, ws = quantize_linear(torch.randn(k, n, generator=gen) * 0.05)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    acc = int_mm(xq.to(card), wq.to(card), n)
+    assert acc.shape == (m, n)
+    assert torch.equal(acc.cpu(), int_mm(xq, wq, n))
+    assert torch.equal(qmatmul(x.to(card), wq.to(card), ws.to(card)).cpu(),
+                       qmatmul(x, wq, ws))
+
+
+def _small_int8_problem():
+    gen = torch.Generator().manual_seed(3)
+    encoder = EncoderAttention(init_resnet(gen, (1, 1, 1, 1), (4, 8, 8, 16),
+                                           device="cpu"))
+    imgs = torch.randint(0, 256, (3, 64, 64, 3), generator=gen,
+                         dtype=torch.uint8)
+    act_maxes = calibrate_act_maxes(encoder.resnet, imgs, torch.float32)
+    return encoder, imgs, act_maxes
+
+
+@pytest.mark.parametrize("int8_decoder", [False, True])
+def test_int8_greedy_captioner_on_card_matches_cpu(card, int8_decoder):
+    """The int8 encoder and greedy decoding in f32 with TF32 off, on the
+    same act_maxes: card == CPU, token for token."""
+    encoder, imgs, act_maxes = _small_int8_problem()
+    decoder = steered_decoder(60, 32, 48, 16, 64, seed=0, device="cpu")
+    outs = [make_int8_attention_captioner(
+        encoder, decoder, 57, 58, max_len=12, compute_dtype=torch.float32,
+        act_maxes=act_maxes, int8_decoder=int8_decoder, device=dev)(imgs)
+        for dev in (card, "cpu")]
+    assert torch.equal(outs[0][0].cpu(), outs[1][0])
+    torch.testing.assert_close(outs[0][1].cpu(), outs[1][1], atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("loop", ["per_step", "int8_grid", "fused"])
+def test_int8_beam_captioner_on_card_matches_cpu(card, loop):
+    encoder, imgs, act_maxes = _small_int8_problem()
+    decoder = steered_decoder(60, 32, 48, 16, 64, seed=0, device="cpu")
+    beam_fn = {"per_step": beam_search_batched,
+               "int8_grid": functools.partial(beam_search_batched,
+                                              int8_grid=True),
+               "fused": beam_search_fused}[loop]
+    outs = [make_beam_captioner(encoder, decoder, 57, 58, beam_size=3,
+                                compute_dtype=torch.float32, device=dev,
+                                beam_fn=beam_fn, act_maxes=act_maxes)(imgs)
             for dev in (card, "cpu")]
     for key in ("seq", "seq_len", "found"):
         assert torch.equal(outs[0][key].cpu(), outs[1][key]), key

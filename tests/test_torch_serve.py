@@ -8,7 +8,9 @@ icd_tpu (f32, CPU, a small encoder and decoder).
   protocol of the reference's beam loader;
 - the port's ``gen_captions`` CLI captions a fixture image from a
   ``.ckpt`` that ``icd_tpu`` saved with a real optax state, in a
-  subprocess that never imports jax or optax.
+  subprocess that never imports jax or optax, with the float encoder
+  and with the int8 one (calibrated on the image, the default of both
+  CLIs) as the JAX CLI's ``_beam_search_int8`` does.
 """
 
 import argparse
@@ -102,13 +104,37 @@ def _save_ckpt(enc, dec):
                            {"epoch_losses": []}, verbose=False)
 
 
+def _gen_captions(root, image, encoder):
+    """The port's CLI in a subprocess: its output lines, the last one
+    naming the foreign modules it imported."""
+    script = (
+        "import sys, runpy\n"
+        "sys.argv = ['gen_captions', 'torchport_0.ckpt', {!r},"
+        " '--encoder', {!r}, '--dtype', 'f32', '--device', 'cpu']\n"
+        "runpy.run_module('icd_tpu_torch.gen_captions', run_name='__main__')\n"
+        "print('FOREIGN', sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'optax', 'icd_tpu')))\n").format(
+            image, encoder)
+    env = dict(os.environ, ICD_TPU_ROOT=root, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "FOREIGN []"
+    return lines
+
+
+def _fixture_image(root):
+    return os.path.join(root, "cocoapi", "images", "val2014",
+                        "COCO_val2014_000000000011.jpg")
+
+
 def test_gen_captions_cli_on_icd_tpu_checkpoint(use_coco_root):
     from icd_tpu.vocabulary import load_vocab
 
     root = use_coco_root
     vocab = load_vocab()
-    image = os.path.join(root, "cocoapi", "images", "val2014",
-                         "COCO_val2014_000000000011.jpg")
+    image = _fixture_image(root)
     enc = {"resnet": small_resnet_tree()}
     img = load_img(image)
     dec = _decoder(len(vocab), vocab(END_TOKEN))
@@ -116,20 +142,7 @@ def test_gen_captions_cli_on_icd_tpu_checkpoint(use_coco_root):
     seq, _, found = jax_caption_image(argparse.Namespace(beam_size=5), img,
                                       enc, dec, vocab)
     expected = " ".join(vocab.i2w[t] for t in seq)
-
-    script = (
-        "import sys, runpy\n"
-        "sys.argv = ['gen_captions', 'torchport_0.ckpt', {!r},"
-        " '--dtype', 'f32', '--device', 'cpu']\n"
-        "runpy.run_module('icd_tpu_torch.gen_captions', run_name='__main__')\n"
-        "print('FOREIGN', sorted(m for m in sys.modules"
-        " if m.split('.')[0] in ('jax', 'optax', 'icd_tpu')))\n").format(image)
-    env = dict(os.environ, ICD_TPU_ROOT=root, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.strip().splitlines()
-    assert lines[-1] == "FOREIGN []"
+    lines = _gen_captions(root, image, "float")
     assert expected in lines
     assert found == ("(beam search did not complete a caption)" not in lines)
 
@@ -155,8 +168,21 @@ def test_pth_tar_raises(use_coco_root):
         load_checkpoint(name="ref.pth.tar", verbose=False)
 
 
-def test_gen_captions_int8_raises():
-    from icd_tpu_torch.gen_captions import main
+def test_gen_captions_int8_raises(use_coco_root):
+    """``--encoder int8``, which raised before the int8 encoder was
+    ported, now prints the JAX CLI's caption (f32)."""
+    import gen_captions as jax_cli
+    from icd_tpu.vocabulary import load_vocab
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["x.ckpt", "x.jpg", "--encoder", "int8", "--device", "cpu"])
+    root = use_coco_root
+    vocab = load_vocab()
+    image = _fixture_image(root)
+    enc = {"resnet": small_resnet_tree()}
+    dec = _decoder(len(vocab), vocab(END_TOKEN))
+    _save_ckpt(enc, dec)
+    seq, _, found = jax_cli._beam_search_int8(
+        argparse.Namespace(beam_size=5), load_img(image), enc, dec, vocab,
+        jnp.float32)
+    assert found and len(seq) > 3
+    lines = _gen_captions(root, image, "int8")
+    assert " ".join(vocab.i2w[t] for t in seq) in lines

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive icd_tpu_torch's serving paths on one CUDA card: beam search
-(float and int8 encoder) and greedy decoding (float and W8A8 decoder).
+(float and int8 encoder) and greedy decoding (float and W8A8 decoder)
+of the attention model, greedy decoding of the baseline model, and the
+bench (``python -m icd_tpu_torch.bench``).
 
     python3 chip_smoke.py
 
@@ -107,10 +109,29 @@ Phases, one line of output each:
                int8_grid, batch 64: encoder ms, beam ms, steps,
                launches, captions/s;
 14. beam_eval_int8  caption_images with the int8 per-step captioner (the
-               CLI's default configuration) over the same 130 images.
+               CLI's default configuration) over the same 130 images;
+15. baseline_f32  the baseline model (baseline_models: full_width_models'
+               ResNet-101 with a seeded embed head, a seeded V=10,000,
+               E=H=512 decoder with <end> pinned unreachable) through
+               make_captioner, f32, TF32 off, batch 8: the features
+               against the same encoder on the CPU for one image (max
+               error within 1e-3 of the largest feature), and the card's
+               greedy tokens against the CPU's from the same features, at
+               least 7 of 8 captions equal; neither K1 nor K2 launched;
+16. baseline_serve_bf16  batch 64, max_len 25, <end> pinned, through
+               make_captioner, make_captioner(int8=True) (dynamic int8
+               convolutions), and make_int8_captioner (act_maxes of
+               int8_encoder) with the float and the W8A8 decoder: encoder
+               ms, decode ms, steps (25), captions/s, peak memory; no K1
+               or K2 launch;
+17. bench      icd_tpu_torch.bench.measure in its int8 and its bf16 mode on
+               the same models at bench.py's shapes (batch 64, 224x224,
+               25 steps, 10 repeats, 3 trials): the two JSON lines it
+               prints, for each mode.
 
 Every path is driven with the launch counts set to 0 just before it and
-read just after; each must have launched its kernels.
+read just after; each must have launched its kernels, and the baseline
+paths, which have none, none.
 
 Then one JSON line of every kernel's numbers (K2's with its per-phase
 ms), the card's name and power limit as nvidia-smi gives them, and last
@@ -124,7 +145,6 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -145,13 +165,6 @@ def check(ok, what, *values):
 
 def log(phase, **fields):
     print(json.dumps(dict(phase=phase, **fields)), flush=True)
-
-
-def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def k2_bound_ms(ops, k, steps):
@@ -866,6 +879,7 @@ def phase_int8_conv():
     import torch
     import torch.nn.functional as F
 
+    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.ops.quant import conv2d_int8, gemm_layout, int8_conv
 
@@ -982,6 +996,7 @@ def phase_int8_encoder(models):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import (build_int8_backbone,
                                               make_beam_captioner)
     from icd_tpu_torch.k1_bench import time_ms
@@ -1113,6 +1128,7 @@ def check_greedy(out, n, max_len, what):
 def phase_greedy(models, results):
     import torch
 
+    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import make_attention_captioner
     from icd_tpu_torch.ops.fused_attention import fused_attention
 
@@ -1161,6 +1177,7 @@ def phase_greedy(models, results):
 def phase_serve_int8_greedy(models, act_maxes, results):
     import torch
 
+    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import make_int8_attention_captioner
     from icd_tpu_torch.ops.fused_attention import fused_attention
     from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
@@ -1217,6 +1234,7 @@ def phase_serve_int8_beam(models, act_maxes, results):
 
     import torch
 
+    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.beam import beam_search_batched
     from icd_tpu_torch.decoding.serve import make_beam_captioner
     from icd_tpu_torch.ops.fused_attention import fused_attention
@@ -1262,6 +1280,154 @@ def phase_serve_int8_beam(models, act_maxes, results):
     return captioners["per_step"]
 
 
+def baseline_models(models):
+    """The baseline model at full width on the card, f32: the ResNet-101 of
+    ``full_width_models`` (not a second trunk) with a seeded Linear(2048,
+    512) head, and a seeded V=10,000, E=H=512 decoder whose <end> is
+    pinned unreachable, as bench.py pins it."""
+    import torch
+
+    from icd_tpu_torch import bench
+    from icd_tpu_torch.models.baseline import (BaselineDecoderParams,
+                                               init_baseline_decoder)
+    from icd_tpu_torch.models.encoder import Encoder, init_embed
+
+    gen = torch.Generator().manual_seed(5)
+    embed = init_embed(gen, EMBED, device="cuda")
+    params = BaselineDecoderParams()
+    params.vocab_size, params.embed_size = VOCAB, EMBED
+    params.hidden_size = DEC_DIM
+    decoder = init_baseline_decoder(gen, params, device="cuda")
+    bench.pin_end(decoder, END_ID)
+    return Encoder(models[0].resnet, embed), decoder
+
+
+def kernel_counters():
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+    from icd_tpu_torch.ops.fused_beam import beam_search_fused
+
+    return [fused_attention, beam_search_fused]
+
+
+def check_no_kernel(counters, what, results):
+    """The baseline paths run no kernel: K1 and K2 launched no time."""
+    launches = [c.launches for c in counters]
+    check(launches == [0, 0], what + ": K1, K2 launched", launches)
+    results["fused_attention"]["launches_by_path"][what] = launches[0]
+    results["fused_beam"]["launches_by_path"][what] = launches[1]
+
+
+def phase_baseline_f32(base, results):
+    import torch
+
+    from icd_tpu_torch.decoding.greedy import greedy_decode_baseline
+    from icd_tpu_torch.decoding.serve import make_captioner
+    from icd_tpu_torch.models.encoder import encoder_forward
+
+    encoder, decoder = base
+    max_len = 25
+    captioner = make_captioner(encoder, decoder, START_ID, END_ID,
+                               max_len=max_len, compute_dtype=torch.float32,
+                               device="cuda")
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 off for f32")
+    imgs = uint8_images(8, seed=2)
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    feats = captioner.encode(imgs)
+    toks = captioner.decode(feats)
+    torch.cuda.synchronize()
+    check_no_kernel(counters, "baseline_f32", results)
+    with torch.inference_mode():
+        cpu_feats = encoder_forward(copy.deepcopy(encoder).cpu(), imgs[:1])
+        cpu_toks = greedy_decode_baseline(
+            copy.deepcopy(decoder).cpu(), feats.cpu(), START_ID, END_ID,
+            max_len=max_len)
+    check(feats.shape == (8, EMBED) and feats.dtype == torch.float32,
+          "f32 features", feats.shape, feats.dtype)
+    feat_err = (feats[:1].cpu() - cpu_feats).abs().max().item()
+    feat_scale = cpu_feats.abs().max().item()
+    # f32 on both sides, different convolution algorithms (path_f32).
+    check(feat_err <= 1e-3 * feat_scale, "f32 features vs CPU", feat_err,
+          feat_scale)
+    check(toks.shape == (8, max_len) and not bool((toks == END_ID).any()),
+          "f32 tokens: shape, <end> pinned", toks.shape)
+    equal = int((toks.cpu() == cpu_toks).all(dim=1).sum())
+    check(equal >= 7, "f32 baseline captions card vs CPU", equal)
+    log("baseline_f32", images=8, max_len=max_len, vocab=VOCAB,
+        feature_err_vs_cpu=feat_err, feature_max=feat_scale,
+        captions_equal_to_cpu=equal, k1_launches=0, k2_launches=0)
+
+
+def phase_baseline_serve_bf16(base, act_maxes, results):
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.decoding.serve import (make_captioner,
+                                              make_int8_captioner)
+
+    encoder, decoder = base
+    max_len = 25
+    bf16 = torch.bfloat16
+    imgs = uint8_images(IMAGES, seed=3).cuda()
+    builds = {
+        "float": lambda: make_captioner(
+            encoder, decoder, START_ID, END_ID, max_len=max_len,
+            compute_dtype=bf16, device="cuda"),
+        "dynamic_int8": lambda: make_captioner(
+            encoder, decoder, START_ID, END_ID, max_len=max_len,
+            compute_dtype=bf16, int8=True, device="cuda"),
+        "static_int8": lambda: make_int8_captioner(
+            encoder, decoder, START_ID, END_ID, max_len=max_len,
+            compute_dtype=bf16, act_maxes=act_maxes, device="cuda"),
+        "static_int8_w8a8": lambda: make_int8_captioner(
+            encoder, decoder, START_ID, END_ID, max_len=max_len,
+            compute_dtype=bf16, act_maxes=act_maxes, int8_decoder=True,
+            device="cuda"),
+    }
+    runs = {}
+    for name, build in builds.items():
+        cap = build()
+        counters = kernel_counters()
+        toks, enc_ms, dec_ms, _, peak = timed_serve(cap, imgs, counters)
+        check_no_kernel(counters, "baseline_serve_bf16/" + name, results)
+        check(toks.shape == (IMAGES, max_len), name + " token shape",
+              toks.shape)
+        check(bool(((toks >= 0) & (toks < VOCAB)).all())
+              and not bool((toks == END_ID).any()),
+              name + " tokens in range, <end> pinned")
+        runs[name] = dict(encoder_ms=enc_ms, decode_ms=dec_ms,
+                          steps=toks.shape[1],
+                          captions_per_s=IMAGES / ((enc_ms + dec_ms) / 1e3),
+                          peak_memory_bytes=peak)
+        del cap
+    log("baseline_serve_bf16", images=IMAGES, max_len=max_len, vocab=VOCAB,
+        **runs, card=card_line())
+
+
+def phase_bench(base, results):
+    import torch
+
+    from icd_tpu_torch import bench
+
+    encoder, decoder = base
+    imgs = bench.images(bench.BATCH, bench.IMAGE_SIZE, device="cuda")
+    for mode in ("int8", "bf16"):
+        counters = kernel_counters()
+        for c in counters:
+            c.launches = 0
+        one, result = bench.measure(encoder, decoder, imgs, mode)
+        torch.cuda.synchronize()
+        check_no_kernel(counters, "bench/" + mode, results)
+        check(result["value"] > 0 and one["captions_with_end"] == 0
+              and one["steps"] == bench.DECODE_LEN
+              and one["int8_decoder"] == (mode == "int8"),
+              "bench " + mode, one, result)
+        print(json.dumps(one), flush=True)
+        print(json.dumps(result), flush=True)
+
+
 def main():
     import torch
 
@@ -1270,6 +1436,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import icd_tpu_torch.kernels  # noqa: F401  (fails outside the repo)
+    from icd_tpu_torch.bench import card_line
 
     print(card_line(), flush=True)
     results = {}
@@ -1288,6 +1455,10 @@ def main():
     phase_serve_int8_greedy(models, act_maxes, results)
     phase_beam_eval(phase_serve_int8_beam(models, act_maxes, results),
                     results, phase="beam_eval_int8")
+    base = baseline_models(models)
+    phase_baseline_f32(base, results)
+    phase_baseline_serve_bf16(base, act_maxes, results)
+    phase_bench(base, results)
 
     k1 = dict(name="fused_attention", route="cuda",
               source="icd_tpu_torch/csrc/fused_attention.cu",

@@ -17,8 +17,7 @@ import torch
 from ..models.attention import decode_step, init_hidden_state
 from ..ops.fused_attention import fused_attention
 from ..ops.qlinear import qlstm_cell, qmatmul, quantize_linear, quantize_lstm
-
-MAX_STEPS = 50
+from .greedy import MAX_STEPS
 
 
 def _flat(encoder_grid):

@@ -1,20 +1,20 @@
-"""Greedy captioning of the val split (the port of ``tools/greedy_eval.py``
-for ``--model_type attention``)::
+"""Greedy captioning of the val split (the port of ``tools/greedy_eval.py``)::
 
-    python -m icd_tpu_torch.greedy_eval <checkpoint> [--batch_size 64]
+    python -m icd_tpu_torch.greedy_eval <checkpoint>
+        [--model_type attention|baseline] [--batch_size 64]
         [--max_len 25] [--max_caption_length -1]
         [--out eval_data/<name>_greedy.json] [--int8] [--act_maxes PATH]
         [--device cuda|cpu]
 
-Captions every unique val image with the greedy serving pipeline
-(``decoding.serve.make_attention_captioner``, or with ``--int8``
-``make_int8_attention_captioner``: the static-int8 backbone calibrated
-on the first val batch) and writes the same COCO-results JSON as the JAX
-tool, ``[{"image_id": ..., "caption": ...}]``, each caption the words
-before the first ``<end>``. ``--act_maxes PATH`` loads the maxes from a
-``.npy`` if it exists, else writes them there after calibrating. It
-computes in bf16, as the JAX tool does. The baseline family is not
-ported yet.
+Captions every unique val image with the greedy serving pipeline of
+either model family (``decoding.serve.make_attention_captioner`` or
+``make_captioner``; with ``--int8`` ``make_int8_attention_captioner`` or
+``make_int8_captioner``: the static-int8 backbone calibrated on the
+first val batch, the decoder float) and writes the same COCO-results
+JSON as the JAX tool, ``[{"image_id": ..., "caption": ...}]``, each
+caption the words before the first ``<end>``. ``--act_maxes PATH``
+loads the maxes from a ``.npy`` if it exists, else writes them there
+after calibrating. It computes in bf16, as the JAX tool does.
 """
 
 import argparse
@@ -45,15 +45,12 @@ def main(argv=None):
                         choices=["cuda", "cpu"],
                         help="where to run (default: cuda)")
     args = parser.parse_args(argv)
-    if args.model_type == "baseline":
-        raise NotImplementedError(
-            "--model_type baseline is not ported to icd_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 6: the baseline family)")
 
     from .checkpoint import load_checkpoint, unpack_checkpoint
     from .data.dataset import COCODataset
-    from .decoding.serve import (make_attention_captioner,
-                                 make_int8_attention_captioner)
+    from .decoding.serve import (make_attention_captioner, make_captioner,
+                                 make_int8_attention_captioner,
+                                 make_int8_captioner)
     from .device import resolve_device
     from .params import decoder_from_jax, encoder_from_jax
     from .pathconf import PathConfig
@@ -67,6 +64,7 @@ def main(argv=None):
     start_id, end_id = vocab(START_TOKEN), vocab(END_TOKEN)
     img_ids = dataset.img_ids
 
+    baseline = args.model_type == "baseline"
     if args.int8:
         calib = act_maxes = None
         if args.act_maxes and os.path.exists(args.act_maxes):
@@ -74,16 +72,18 @@ def main(argv=None):
             print("Loaded act_maxes from {}".format(args.act_maxes))
         else:
             calib = dataset.load_image_batch(img_ids[:args.batch_size])
-        captioner = make_int8_attention_captioner(
-            encoder, decoder, start_id, end_id, max_len=args.max_len,
-            calib_imgs=calib, act_maxes=act_maxes, device=device)
+        make = make_int8_captioner if baseline \
+            else make_int8_attention_captioner
+        captioner = make(encoder, decoder, start_id, end_id,
+                         max_len=args.max_len, calib_imgs=calib,
+                         act_maxes=act_maxes, device=device)
         if args.act_maxes and act_maxes is None:
             np.save(args.act_maxes, np.asarray(captioner.act_maxes))
             print("Saved act_maxes to {}".format(args.act_maxes))
     else:
-        captioner = make_attention_captioner(
-            encoder, decoder, start_id, end_id, max_len=args.max_len,
-            device=device)
+        make = make_captioner if baseline else make_attention_captioner
+        captioner = make(encoder, decoder, start_id, end_id,
+                         max_len=args.max_len, device=device)
 
     batch_size = max(1, min(args.batch_size, len(img_ids)))
     results = []
@@ -94,7 +94,10 @@ def main(argv=None):
         if valid < batch_size:
             imgs = np.concatenate(
                 [imgs, np.repeat(imgs[-1:], batch_size - valid, 0)])
-        toks = captioner(imgs)[0][:valid].cpu().numpy()
+        toks = captioner(imgs)
+        if not baseline:
+            toks = toks[0]  # (tokens, alphas)
+        toks = toks[:valid].cpu().numpy()
         for img_id, row in zip(chunk, toks):
             words = []
             for t in row:

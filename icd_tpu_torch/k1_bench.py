@@ -29,6 +29,7 @@ from . import kernels
 SETTLE_CYCLES = 100_000_000  # about 50 ms of the card's clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, same source
+INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak, same source
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
 
 # Serving shapes: bench.py:36-38 and tools/bench_beam.py:16-20.

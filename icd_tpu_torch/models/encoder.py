@@ -1,22 +1,87 @@
-"""Attention encoder head (port of ``icd_tpu/models/encoder.py:47-72``
-and :96-106).
+"""CNN encoder heads over the ResNet-101 backbone
+(port of ``icd_tpu/models/encoder.py:26-106``), eval mode.
 
-The ResNet-101 grid adaptively pooled to 14x14x2048 for the
-soft-attention decoder (reference: models/encoder.py:72-110), over the
-float backbone or the static-int8 one (``resnet_int8.py``). The
-baseline head (global pool + Linear, and its int8 form) comes with the
-baseline slice.
+- ``encoder_forward``: global-pooled features -> Linear(2048,
+  embed_size), (B, embed_size) for the baseline LSTM decoder
+  (reference: models/encoder.py:22-58);
+- ``encoder_attention_forward``: the grid adaptively pooled to
+  14x14x2048 for the soft-attention decoder (reference:
+  models/encoder.py:72-110).
+
+Each over the float backbone or the static-int8 one
+(``resnet_int8.py``). The ``embed`` product and its bias are two
+operations, as JAX's ``x @ w + b``: in bf16 ``F.linear`` with a bias
+would add it before the product's one rounding.
 """
+
+import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..ops.image import normalize_imagenet
-from .resnet import adaptive_avg_pool2d, init_resnet101, resnet_forward
+from .resnet import (adaptive_avg_pool2d, global_avg_pool, init_resnet101,
+                     resnet_forward)
 from .resnet_int8 import resnet_int8_forward
 
 ENCODER_DIM = 2048
 ATTENTION_GRID = (14, 14)
+
+
+class Encoder(nn.Module):
+    """``{"resnet": ..., "embed": ...}`` of the JAX tree; ``embed`` is an
+    ``nn.Linear(2048, embed_size)``."""
+
+    def __init__(self, resnet, embed):
+        super().__init__()
+        self.resnet = resnet
+        self.embed = embed
+
+
+def init_embed(generator, embed_size, dtype=torch.float32, device=None):
+    """The baseline head, a torch-default ``nn.Linear(2048, embed_size)``:
+    U(+-1/sqrt(2048)) on weight and bias (encoder.py:30), drawn from
+    ``generator`` on the CPU."""
+    device = resolve_device(device)
+    embed = nn.Linear(ENCODER_DIM, embed_size)
+    bound = 1.0 / math.sqrt(ENCODER_DIM)
+    with torch.no_grad():
+        for p in (embed.weight, embed.bias):
+            p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound)
+                    - bound)
+    return embed.to(device=device, dtype=dtype)
+
+
+def init_encoder(generator, embed_size, dtype=torch.float32, device=None):
+    """ResNet-101 and the baseline head (encoder.py:39)."""
+    return Encoder(init_resnet101(generator, dtype, device),
+                   init_embed(generator, embed_size, dtype, device))
+
+
+def _embed(embed, pooled):
+    return F.linear(pooled.to(embed.weight.dtype), embed.weight) + embed.bias
+
+
+def encoder_forward(encoder, imgs, compute_dtype=None, conv=None):
+    """(B, H, W, 3) uint8/float -> (B, embed_size) features, eval mode
+    (encoder.py:51). ``conv`` replaces the backbone's convolution (the
+    dynamic ``ops.quant.int8_conv``). Unlike the JAX function this
+    returns only the features, as ``encoder_attention_forward`` does."""
+    x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
+    feats = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype,
+                           conv=conv)
+    return _embed(encoder.embed, global_avg_pool(feats))
+
+
+def encoder_forward_int8(encoder, qresnet, imgs, compute_dtype=torch.bfloat16):
+    """``encoder_forward`` over the static-int8 backbone ``qresnet``
+    (encoder.py:75); only ``encoder.embed`` is read."""
+    x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
+    feats = resnet_int8_forward(qresnet, x.to(compute_dtype),
+                                out_dtype=compute_dtype)
+    return _embed(encoder.embed, global_avg_pool(feats))
 
 
 class EncoderAttention(nn.Module):

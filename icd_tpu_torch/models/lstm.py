@@ -1,9 +1,10 @@
-"""LSTM cell (port of ``icd_tpu/models/lstm.py:49-70``).
+"""LSTM cell and sequence (port of ``icd_tpu/models/lstm.py:49-98``).
 
 Weights live in an ``nn.LSTMCell`` (``weight_ih`` (4H, in), ``weight_hh``
 (4H, H), ``bias_ih``, ``bias_hh``), which is the JAX tree's ``wi``/``wh``
 transposed. The step itself is written out so that the gate order and
-the order of the bias additions are the JAX package's, not cuDNN's.
+the order of the bias additions are the JAX package's, not cuDNN's
+(``nn.LSTM`` and cuDNN's RNN fuse the gates in their own order).
 """
 
 import math
@@ -47,3 +48,20 @@ def lstm_cell(cell, x, h, c):
     gates = (F.linear(x, cell.weight_ih) + cell.bias_ih
              + F.linear(h, cell.weight_hh) + cell.bias_hh)
     return gates_to_state(gates, c)
+
+
+def lstm_scan(cell, xs, h0=None, c0=None):
+    """Run the cell over a batch-major sequence (lstm.py:73).
+
+    xs: (B, T, in); h0/c0: (B, H), zeros in ``xs``'s dtype when None.
+    Returns (outputs (B, T, H), (h_T, c_T)).
+    """
+    batch = xs.shape[0]
+    shape = (batch, cell.hidden_size)
+    h = xs.new_zeros(shape) if h0 is None else h0
+    c = xs.new_zeros(shape) if c0 is None else c0
+    outs = []
+    for t in range(xs.shape[1]):
+        h, c = lstm_cell(cell, xs[:, t], h, c)
+        outs.append(h)
+    return torch.stack(outs, dim=1), (h, c)

@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.quant import div
 
 RESNET101_DEPTHS = (3, 4, 23, 3)
 RESNET_WIDTHS = (64, 128, 256, 512)
@@ -93,6 +94,14 @@ def adaptive_avg_pool2d(x, out_hw):
     (models/encoder.py:92); ATen uses the same floor/ceil windows.
     """
     return _nhwc(F.adaptive_avg_pool2d(_nchw(x), out_hw))
+
+
+def global_avg_pool(x):
+    """Mean over the NHWC spatial dims (resnet.py:119), as ``jnp.mean``
+    takes it: summed in f32 (bf16 input too), divided once, rounded once
+    to the input's dtype. (ATen's mean on the card multiplies by the
+    reciprocal of the count instead.)"""
+    return div(x.float().sum(dim=(1, 2)), x.shape[1] * x.shape[2]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The weight bridge: the JAX package's numpy pytrees <-> the port's modules.
 
-The trees are the payload ``icd_tpu/checkpoint.py:98-115`` pickles
-(``encoder`` = ``{"resnet": ...}``, ``decoder`` = the attention decoder's
-tree). Layouts:
+The trees are the payload ``icd_tpu/checkpoint.py:98-115`` pickles:
+``encoder`` = ``{"resnet": ...}`` (attention) or ``{"resnet", "embed"}``
+(baseline), ``decoder`` = the attention or the baseline decoder's tree,
+told apart by their keys. Layouts:
 
 - convolution kernels HWIO (JAX) <-> OIHW (here);
 - Linear ``w`` (in, out) <-> ``nn.Linear.weight`` (out, in);
@@ -14,20 +15,21 @@ Shapes are read off the tree, so any ResNet depth or decoder width
 converts. ``*_to_jax`` are the inverses and return float32 numpy trees.
 Converted modules live on the CPU; move them with ``.to(device)``.
 
-The quantized trees (``quantize_resnet``'s and
-``quantize_attention_decoder``'s) are dicts of tensors with the JAX
-tree's keys and values; ``qresnet_*`` and ``qdecoder_*`` convert them
-both ways, int8 kept int8. Their int8 weights keep the JAX layout, HWIO
-and (I, O), stored column-major for cuBLASLt, and the decoder's have
-their columns padded to a multiple of 8 (``ops/qlinear.py``), which
-``qdecoder_to_jax`` slices off.
+The quantized trees (``quantize_resnet``'s,
+``quantize_attention_decoder``'s and ``quantize_baseline_decoder``'s)
+are dicts of tensors with the JAX tree's keys and values; ``qresnet_*``
+and ``qdecoder_*`` convert them both ways, int8 kept int8. Their int8
+weights keep the JAX layout, HWIO and (I, O), stored column-major for
+cuBLASLt, and the decoders' have their columns padded to a multiple of
+8 (``ops/qlinear.py``), which ``qdecoder_to_jax`` slices off.
 """
 
 import numpy as np
 import torch
 
 from .models.attention import AttentionDecoder
-from .models.encoder import EncoderAttention
+from .models.baseline import BaselineDecoder
+from .models.encoder import Encoder, EncoderAttention
 from .models.resnet import ResNet
 from .ops.quant import gemm_layout, pad_columns
 
@@ -113,12 +115,22 @@ def resnet_to_jax(net):
 
 
 def encoder_from_jax(tree):
-    """``EncoderAttention`` from a JAX attention-encoder tree."""
-    return EncoderAttention(resnet_from_jax(tree["resnet"]))
+    """``Encoder`` from a baseline-encoder tree (it has ``embed``), else
+    ``EncoderAttention``."""
+    resnet = resnet_from_jax(tree["resnet"])
+    if "embed" not in tree:
+        return EncoderAttention(resnet)
+    embed = torch.nn.Linear(*np.shape(tree["embed"]["w"]), device="meta")
+    embed = embed.to_empty(device="cpu")
+    _linear_from(embed, tree["embed"])
+    return Encoder(resnet, embed)
 
 
 def encoder_to_jax(encoder):
-    return {"resnet": resnet_to_jax(encoder.resnet)}
+    tree = {"resnet": resnet_to_jax(encoder.resnet)}
+    if isinstance(encoder, Encoder):
+        tree["embed"] = _linear_to(encoder.embed)
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +146,24 @@ def _linear_to(lin):
     return {"w": _numpy(lin.weight).T.copy(), "b": _numpy(lin.bias)}
 
 
+def _lstm_from(cell, tree):
+    cell.weight_ih.data = _tensor(tree["wi"]).t().contiguous()
+    cell.weight_hh.data = _tensor(tree["wh"]).t().contiguous()
+    cell.bias_ih.data = _tensor(tree["bi"])
+    cell.bias_hh.data = _tensor(tree["bh"])
+
+
+def _lstm_to(cell):
+    return {"wi": _numpy(cell.weight_ih).T.copy(),
+            "wh": _numpy(cell.weight_hh).T.copy(),
+            "bi": _numpy(cell.bias_ih), "bh": _numpy(cell.bias_hh)}
+
+
 def decoder_from_jax(tree):
-    """``AttentionDecoder`` from a JAX attention-decoder tree."""
+    """``AttentionDecoder`` from a JAX attention-decoder tree, or
+    ``BaselineDecoder`` from a baseline one (it has ``linear``)."""
+    if "linear" in tree:
+        return _baseline_decoder_from_jax(tree)
     att = tree["attention"]
     enc_dim, att_dim = np.shape(att["enc_att"]["w"])
     dec_dim = np.shape(att["dec_att"]["w"])[0]
@@ -148,23 +176,32 @@ def decoder_from_jax(tree):
         _linear_from(getattr(dec.attention, name), att[name])
     for name in ("h_lin", "c_lin", "f_beta", "fc"):
         _linear_from(getattr(dec, name), tree[name])
-    lstm = tree["lstm"]
-    dec.lstm.weight_ih.data = _tensor(lstm["wi"]).t().contiguous()
-    dec.lstm.weight_hh.data = _tensor(lstm["wh"]).t().contiguous()
-    dec.lstm.bias_ih.data = _tensor(lstm["bi"])
-    dec.lstm.bias_hh.data = _tensor(lstm["bh"])
+    _lstm_from(dec.lstm, tree["lstm"])
     dec.embedding.weight.data = _tensor(tree["embedding"])
     return dec
 
 
+def _baseline_decoder_from_jax(tree):
+    vocab_size, embed_size = np.shape(tree["embedding"])
+    hidden_size = np.shape(tree["lstm"]["wh"])[0]
+    with torch.device("meta"):
+        dec = BaselineDecoder(vocab_size, embed_size, hidden_size)
+    dec = dec.to_empty(device="cpu")
+    dec.embedding.weight.data = _tensor(tree["embedding"])
+    _lstm_from(dec.lstm, tree["lstm"])
+    _linear_from(dec.linear, tree["linear"])
+    return dec
+
+
 def decoder_to_jax(dec):
+    if isinstance(dec, BaselineDecoder):
+        return {"embedding": _numpy(dec.embedding.weight),
+                "lstm": _lstm_to(dec.lstm),
+                "linear": _linear_to(dec.linear)}
     return {
         "attention": {name: _linear_to(getattr(dec.attention, name))
                       for name in ("enc_att", "dec_att", "full_att")},
-        "lstm": {"wi": _numpy(dec.lstm.weight_ih).T.copy(),
-                 "wh": _numpy(dec.lstm.weight_hh).T.copy(),
-                 "bi": _numpy(dec.lstm.bias_ih),
-                 "bh": _numpy(dec.lstm.bias_hh)},
+        "lstm": _lstm_to(dec.lstm),
         "h_lin": _linear_to(dec.h_lin),
         "c_lin": _linear_to(dec.c_lin),
         "f_beta": _linear_to(dec.f_beta),
@@ -202,20 +239,26 @@ def qresnet_to_jax(tree):
     return _map(_leaf_to, tree)
 
 
-_QPAIRS = (("lstm", "wiq", "wis"), ("lstm", "whq", "whs"), ("fc", "wq", "ws"))
+# The int8 weights of the two quantized decoder trees: the attention
+# decoder's vocab projection is "fc", the baseline's "linear".
+_QPAIRS = (("lstm", "wiq", "wis"), ("lstm", "whq", "whs"), ("fc", "wq", "ws"),
+           ("linear", "wq", "ws"))
 
 
 def qdecoder_from_jax(tree):
     """The port's int8 decoder tree from ``icd_tpu``'s
-    ``quantize_attention_decoder`` tree, on the CPU."""
+    ``quantize_attention_decoder`` or ``quantize_baseline_decoder`` tree,
+    on the CPU."""
     out = _map(_tensor, tree)
     for part, wq, _ in _QPAIRS:
-        out[part][wq] = pad_columns(out[part][wq])
+        if part in out:
+            out[part][wq] = pad_columns(out[part][wq])
     return out
 
 
 def qdecoder_to_jax(tree):
     out = _map(_leaf_to, tree)
     for part, wq, ws in _QPAIRS:
-        out[part][wq] = out[part][wq][:, :len(out[part][ws])].copy()
+        if part in out:
+            out[part][wq] = out[part][wq][:, :len(out[part][ws])].copy()
     return out

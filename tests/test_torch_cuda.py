@@ -21,7 +21,8 @@ while the host sets the launch up, so the events time only the launch),
 and K1's likewise: the span from its first block's start to its last
 block's end. The int8 products (``torch._int_mm``, cuBLASLt) sum
 integers: card and CPU give the same int32 sums, and the int8 encoder
-the same grid.
+the same grid. Greedy captioners in f32 with TF32 off give the same
+tokens on card and CPU.
 """
 
 import contextlib
@@ -34,10 +35,14 @@ import torch
 import icd_tpu_torch.models.attention as attention
 from icd_tpu_torch.decoding.beam import beam_search_batched
 from icd_tpu_torch.decoding.serve import (make_beam_captioner,
-                                          make_int8_attention_captioner)
+                                          make_captioner,
+                                          make_int8_attention_captioner,
+                                          make_int8_captioner)
 from icd_tpu_torch.models.attention import (AttentionDecoderParams,
                                             init_attention_decoder)
-from icd_tpu_torch.models.encoder import EncoderAttention
+from icd_tpu_torch.models.baseline import (BaselineDecoderParams,
+                                           init_baseline_decoder)
+from icd_tpu_torch.models.encoder import Encoder, EncoderAttention
 from icd_tpu_torch.models.resnet import init_resnet
 from icd_tpu_torch.models.resnet_int8 import calibrate_act_maxes
 from icd_tpu_torch.ops import fused_beam
@@ -490,6 +495,30 @@ def test_int8_greedy_captioner_on_card_matches_cpu(card, int8_decoder):
     assert torch.equal(outs[0][0].cpu(), outs[1][0])
     torch.testing.assert_close(outs[0][1].cpu(), outs[1][1], atol=1e-4,
                                rtol=0)
+
+
+@pytest.mark.parametrize("path", ["float", "dynamic_int8", "static_int8"])
+def test_baseline_captioner_on_card_matches_cpu(card, path):
+    """The baseline model's greedy serving in f32 with TF32 off: the float
+    backbone, its dynamic-int8 convolutions, and the static-int8 backbone
+    with the W8A8 decoder: card == CPU, token for token."""
+    encoder, imgs, act_maxes = _small_int8_problem()
+    gen = torch.Generator().manual_seed(4)
+    params = BaselineDecoderParams()
+    params.vocab_size, params.embed_size, params.hidden_size = 60, 16, 48
+    decoder = init_baseline_decoder(gen, params, device="cpu")
+    head = Encoder(encoder.resnet, torch.nn.Linear(64, 16))
+    if path == "static_int8":
+        make = functools.partial(make_int8_captioner, act_maxes=act_maxes,
+                                 int8_decoder=True)
+    else:
+        make = functools.partial(make_captioner,
+                                 int8=path == "dynamic_int8")
+    outs = [make(head, decoder, 57, 58, max_len=12,
+                 compute_dtype=torch.float32, device=dev)(imgs)
+            for dev in (card, "cpu")]
+    assert outs[1].shape == (3, 12)
+    assert torch.equal(outs[0].cpu(), outs[1])
 
 
 @pytest.mark.parametrize("loop", ["per_step", "int8_grid", "fused"])

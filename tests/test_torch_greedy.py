@@ -236,37 +236,57 @@ def _greedy_eval(args, root, module):
     return proc.stdout
 
 
+def _save_baseline_ckpt(vocab_size, end):
+    """A baseline .ckpt that icd_tpu saves: the 64-channel test encoder
+    with its embed head, and a steered baseline decoder."""
+    import argparse
+
+    import optax
+
+    from icd_tpu.checkpoint import save_checkpoint
+    from test_torch_baseline import _encoder_tree, np_baseline_tree, \
+        steer_end as steer_baseline_end
+
+    dec = steer_baseline_end(np_baseline_tree(vocab=vocab_size), end=end)
+    args = argparse.Namespace(model_name="torchbase", model="baseline",
+                              embed_size=16)
+    return save_checkpoint(args, 0, _encoder_tree(), dec, None,
+                           optax.adam(1e-4).init(dec),
+                           {"epoch_losses": []}, verbose=False)
+
+
 def test_greedy_eval_cli_matches_tools_greedy_eval(use_coco_root, tmp_path):
-    """``python -m icd_tpu_torch.greedy_eval`` with and without ``--int8``
-    writes the JSON of tools/greedy_eval.py (both bf16, the JAX tool's
-    only dtype) from one ``.ckpt`` that icd_tpu saved; with ``--int8`` the
-    JAX tool calibrates and writes ``--act_maxes F`` and the port loads
-    it. ``--model_type baseline`` is not ported and raises."""
+    """``python -m icd_tpu_torch.greedy_eval`` writes the JSON of
+    tools/greedy_eval.py (both bf16, the JAX tool's only dtype) from a
+    ``.ckpt`` that icd_tpu saved, for both model families, with and
+    without ``--int8``; with ``--int8`` the JAX tool calibrates and writes
+    ``--act_maxes F`` and the port loads it. One JAX run per
+    configuration."""
     from icd_tpu.vocabulary import load_vocab
-    from icd_tpu_torch.greedy_eval import main
     from test_torch_serve import _decoder as serve_decoder, _save_ckpt
 
     root = use_coco_root
     vocab = load_vocab()
-    name = _save_ckpt({"resnet": small_resnet_tree()},
-                      serve_decoder(len(vocab), vocab(END_TOKEN)))
-    act_maxes = str(tmp_path / "act_maxes.npy")
-    for extra in ([], ["--int8", "--act_maxes", act_maxes]):
-        common = [os.path.basename(name), "--batch_size", "2",
-                  "--max_len", "12"] + extra
-        ref_json = str(tmp_path / "ref{}.json".format(len(extra)))
-        _greedy_eval(common + ["--out", ref_json], root, module=False)
-        with open(ref_json) as f:
-            ref = json.load(f)
-        assert [r["image_id"] for r in ref] == [11, 12, 13]
-        assert all(r["caption"] for r in ref)
-        out_json = str(tmp_path / "port{}.json".format(len(extra)))
-        stdout = _greedy_eval(common + ["--device", "cpu", "--out",
-                                        out_json], root, module=True)
-        assert stdout.strip().splitlines()[-1] == "FOREIGN []"
-        assert ("Loaded act_maxes" in stdout) == bool(extra)
-        with open(out_json) as f:
-            assert json.load(f) == ref, extra
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        main([os.path.basename(name), "--model_type", "baseline",
-              "--device", "cpu"])
+    names = {
+        "attention": _save_ckpt({"resnet": small_resnet_tree()},
+                                serve_decoder(len(vocab), vocab(END_TOKEN))),
+        "baseline": _save_baseline_ckpt(len(vocab), vocab(END_TOKEN))}
+    for model_type, name in names.items():
+        act_maxes = str(tmp_path / "act_maxes_{}.npy".format(model_type))
+        for extra in ([], ["--int8", "--act_maxes", act_maxes]):
+            common = [os.path.basename(name), "--model_type", model_type,
+                      "--batch_size", "2", "--max_len", "12"] + extra
+            tag = "{}{}".format(model_type, len(extra))
+            ref_json = str(tmp_path / "ref{}.json".format(tag))
+            _greedy_eval(common + ["--out", ref_json], root, module=False)
+            with open(ref_json) as f:
+                ref = json.load(f)
+            assert [r["image_id"] for r in ref] == [11, 12, 13]
+            assert all(r["caption"] for r in ref)
+            out_json = str(tmp_path / "port{}.json".format(tag))
+            stdout = _greedy_eval(common + ["--device", "cpu", "--out",
+                                            out_json], root, module=True)
+            assert stdout.strip().splitlines()[-1] == "FOREIGN []"
+            assert ("Loaded act_maxes" in stdout) == bool(extra)
+            with open(out_json) as f:
+                assert json.load(f) == ref, (model_type, extra)

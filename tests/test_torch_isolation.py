@@ -52,12 +52,20 @@ def test_default_device_raises_without_a_card():
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu():
-    from icd_tpu_torch.decoding.serve import make_beam_captioner
+    from icd_tpu_torch import bench
+    from icd_tpu_torch.decoding.serve import (make_beam_captioner,
+                                              make_captioner,
+                                              make_int8_captioner)
     from icd_tpu_torch.models.resnet import init_resnet
 
     _no_card()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_resnet(torch.Generator().manual_seed(0), (1, 1, 1, 1),
                     (4, 8, 8, 16))
+    for entry in (make_beam_captioner, make_captioner, make_int8_captioner):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(None, None, 1, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        make_beam_captioner(None, None, 1, 2)
+        bench.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.measure(None, None, None, "int8")

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive icd_tpu_torch's serving paths on one CUDA card: beam search
-(float and int8 encoder) and greedy decoding (float and W8A8 decoder)
-of the attention model, greedy decoding of the baseline model, and the
-bench (``python -m icd_tpu_torch.bench``).
+"""Drive icd_tpu_torch's paths on one CUDA card: beam search (float and
+int8 encoder) and greedy decoding (float and W8A8 decoder) of the
+attention model, greedy decoding of the baseline model, the bench
+(``python -m icd_tpu_torch.bench``), and training and teacher-forced
+evaluation of the attention model.
 
     python3 chip_smoke.py
 
@@ -128,10 +129,43 @@ Phases, one line of output each:
                the same models at bench.py's shapes (batch 64, 224x224,
                25 steps, 10 repeats, 3 trials): the two JSON lines it
                prints, for each mode.
+18. train_step_f32  one train step of full_width_models' attention model,
+               f32, TF32 off, dropout 0, batch 4, caption length 12,
+               seeded Zipf captions over V=10,000 (testing.seeded_captions),
+               on the card and on the CPU from the same parameters: the
+               loss within 1e-5 relative and the new BN statistics within
+               1e-4; the decoder's gradients from one grid on both devices
+               within 1e-5 of each tensor's largest value; through each
+               device's own grid, gradients and Adam's moments within 0.06
+               (relu elements within the grids' difference of zero take
+               the other branch), at most 1 % of the updated parameters'
+               elements more than lr / 100 apart; the score bias's
+               gradient (zero in exact arithmetic) below 1e-6 of the
+               largest gradient. The card's step again with TF32 on must
+               fail every one of these limits;
+19. train_f32  training.attention.train_epoch over 20 in-memory batches at
+               tools/bench_train.py's shapes (batch 32, caption length
+               25, V=10,000), dropout 0.5, grad_clip 5, Adam 1e-4: median
+               step ms (CUDA events around each step), images/s, epoch
+               wall seconds, the frozen encoder's forward ms (events) and
+               the rest of the step, one step under torch.profiler
+               (device busy ms, idle share of that step and of the
+               median step, top kernels), peak memory (and the bytes
+               resident before, earlier phases' models), model GFLOP a step
+               (the training bench's count) and their share of the f32
+               peak; then 30 steps on one batch at decoder_lr 1e-3, whose
+               loss must fall below 0.8x its first value;
+20. eval_f32   training.attention.make_eval_step over 130 seeded items
+               in batches of 64 (the last, of 2, at its own size, as
+               evaluate runs it) with train_f32's weights: every item
+               against the CPU (losses within 1e-5 relative, at least 99 %
+               of argmax predictions equal; the first batch with TF32 on
+               must fail the loss limit), and the scorers (METEOR by its
+               pure-Python backend) over the result on the host.
 
 Every path is driven with the launch counts set to 0 just before it and
-read just after; each must have launched its kernels, and the baseline
-paths, which have none, none.
+read just after; each must have launched its kernels, and the baseline,
+train and eval paths, which have none, none.
 
 Then one JSON line of every kernel's numbers (K2's with its per-phase
 ms), the card's name and power limit as nvidia-smi gives them, and last
@@ -165,6 +199,21 @@ def check(ok, what, *values):
 
 def log(phase, **fields):
     print(json.dumps(dict(phase=phase, **fields)), flush=True)
+
+
+def kernel_counters():
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+    from icd_tpu_torch.ops.fused_beam import beam_search_fused
+
+    return [fused_attention, beam_search_fused]
+
+
+def zero_counters():
+    """K1's and K2's wrappers, their launch counts set to 0."""
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    return counters
 
 
 def k2_bound_ms(ops, k, steps):
@@ -479,7 +528,7 @@ def phase_path_f32(models):
     check(grid_err <= 1e-3 * grid_scale, "f32 grid vs CPU", grid_err,
           grid_scale)
 
-    fused_attention.launches = 0
+    zero_counters()
     out = captioner.decode(grid)
     torch.cuda.synchronize()
     launches = fused_attention.launches
@@ -583,7 +632,7 @@ def phase_serve_bf16(models, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fused_attention.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
@@ -614,10 +663,9 @@ def phase_serve_bf16(models, results):
     return captioner, grid
 
 
-def phase_profile(captioner, grid, phase="profile",
-                  table="profile_beam.txt"):
-    """One beam search of the serving batch under torch.profiler: device
-    busy time against wall time, and the kernels that take it."""
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler: (its result, wall ms, device
+    busy ms, [(device us, count, kernel name)] largest first)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -626,7 +674,7 @@ def phase_profile(captioner, grid, phase="profile",
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = captioner.decode(grid)
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -640,7 +688,14 @@ def phase_profile(captioner, grid, phase="profile",
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      reverse=True)
-    busy_ms = sum(k[0] for k in kernels) / 1e3
+    return out, wall_ms, sum(k[0] for k in kernels) / 1e3, kernels
+
+
+def phase_profile(captioner, grid, phase="profile",
+                  table="profile_beam.txt"):
+    """One beam search of the serving batch under torch.profiler: device
+    busy time against wall time, and the kernels that take it."""
+    out, wall_ms, busy_ms, kernels = profiled(lambda: captioner.decode(grid))
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, table), "w") as f:
         for us, count, name in kernels:
@@ -670,8 +725,7 @@ def phase_serve_fused_bf16(models, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fused_attention.launches = 0
-    fused_beam.beam_search_fused.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
@@ -824,8 +878,7 @@ def phase_beam_eval(captioner, results, phase="beam_eval"):
     def load_batch(ids):
         return pool[[i - 1000 for i in ids]]
 
-    beam_search_fused.launches = 0
-    fused_attention.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     rows = caption_images(captioner, img_ids, load_batch, vocab, IMAGES,
                           log=lambda line: None)
@@ -1088,17 +1141,16 @@ def greedy_steps(tokens, max_len):
     return int(first.max())
 
 
-def timed_serve(captioner, imgs, counters):
+def timed_serve(captioner, imgs):
     """One warmed-up batch through ``captioner``: (output, encoder ms,
-    decode ms, launches of each counter, peak bytes). The counters are
-    set to 0 just before the batch and read just after it."""
+    decode ms, launches of K1 and K2, peak bytes). The counters are set
+    to 0 just before the batch and read just after it."""
     import torch
 
     captioner(imgs)  # warm-up: cuBLASLt and cuDNN plans, kernel load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    counters = zero_counters()
     t0 = time.perf_counter()
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
@@ -1140,7 +1192,7 @@ def phase_greedy(models, results):
                                    device="cuda")
     check(not torch.backends.cudnn.allow_tf32, "TF32 off for f32")
     grid = f32.encode(uint8_images(8, seed=2))
-    fused_attention.launches = 0
+    zero_counters()
     toks, alphas = f32.decode(grid)
     torch.cuda.synchronize()
     launches = fused_attention.launches
@@ -1159,8 +1211,7 @@ def phase_greedy(models, results):
                                     compute_dtype=torch.bfloat16,
                                     device="cuda")
     imgs = uint8_images(IMAGES, seed=3).cuda()
-    out, enc_ms, dec_ms, (k1,), peak = timed_serve(bf16, imgs,
-                                                    [fused_attention])
+    out, enc_ms, dec_ms, (k1, _), peak = timed_serve(bf16, imgs)
     steps64 = greedy_steps(out[0], max_len)
     check(k1 > 0 and k1 == steps64, "bf16 greedy K1 launches vs steps", k1,
           steps64)
@@ -1179,7 +1230,6 @@ def phase_serve_int8_greedy(models, act_maxes, results):
 
     from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import make_int8_attention_captioner
-    from icd_tpu_torch.ops.fused_attention import fused_attention
     from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
     from icd_tpu_torch.ops.quant import int_mm
 
@@ -1192,8 +1242,7 @@ def phase_serve_int8_greedy(models, act_maxes, results):
             encoder, decoder, START_ID, END_ID, max_len=max_len,
             compute_dtype=torch.bfloat16, act_maxes=act_maxes,
             int8_decoder=int8_decoder, device="cuda")
-        out, enc_ms, dec_ms, (k1,), peak = timed_serve(cap, imgs,
-                                                        [fused_attention])
+        out, enc_ms, dec_ms, (k1, _), peak = timed_serve(cap, imgs)
         steps = greedy_steps(out[0], max_len)
         name = "int8_decoder" if int8_decoder else "float_decoder"
         check(k1 > 0 and k1 == steps, name + " K1 launches vs steps", k1,
@@ -1237,7 +1286,6 @@ def phase_serve_int8_beam(models, act_maxes, results):
     from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.beam import beam_search_batched
     from icd_tpu_torch.decoding.serve import make_beam_captioner
-    from icd_tpu_torch.ops.fused_attention import fused_attention
     from icd_tpu_torch.ops.fused_beam import beam_search_fused
 
     encoder, decoder = models
@@ -1253,8 +1301,7 @@ def phase_serve_int8_beam(models, act_maxes, results):
                                   compute_dtype=torch.bfloat16,
                                   device="cuda", beam_fn=beam_fn,
                                   act_maxes=act_maxes)
-        out, enc_ms, beam_ms, (k1, k2), peak = timed_serve(
-            cap, imgs, [fused_attention, beam_search_fused])
+        out, enc_ms, beam_ms, (k1, k2), peak = timed_serve(cap, imgs)
         if name == "fused":
             check(k2 == 1 and k1 == 0, "int8 fused launches", k1, k2)
             results["fused_beam"]["launches_by_path"][
@@ -1302,13 +1349,6 @@ def baseline_models(models):
     return Encoder(models[0].resnet, embed), decoder
 
 
-def kernel_counters():
-    from icd_tpu_torch.ops.fused_attention import fused_attention
-    from icd_tpu_torch.ops.fused_beam import beam_search_fused
-
-    return [fused_attention, beam_search_fused]
-
-
 def check_no_kernel(counters, what, results):
     """The baseline paths run no kernel: K1 and K2 launched no time."""
     launches = [c.launches for c in counters]
@@ -1332,9 +1372,7 @@ def phase_baseline_f32(base, results):
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 off for f32")
     imgs = uint8_images(8, seed=2)
-    counters = kernel_counters()
-    for c in counters:
-        c.launches = 0
+    counters = zero_counters()
     feats = captioner.encode(imgs)
     toks = captioner.decode(feats)
     torch.cuda.synchronize()
@@ -1389,9 +1427,9 @@ def phase_baseline_serve_bf16(base, act_maxes, results):
     runs = {}
     for name, build in builds.items():
         cap = build()
-        counters = kernel_counters()
-        toks, enc_ms, dec_ms, _, peak = timed_serve(cap, imgs, counters)
-        check_no_kernel(counters, "baseline_serve_bf16/" + name, results)
+        toks, enc_ms, dec_ms, _, peak = timed_serve(cap, imgs)
+        check_no_kernel(kernel_counters(), "baseline_serve_bf16/" + name,
+                        results)
         check(toks.shape == (IMAGES, max_len), name + " token shape",
               toks.shape)
         check(bool(((toks >= 0) & (toks < VOCAB)).all())
@@ -1414,9 +1452,7 @@ def phase_bench(base, results):
     encoder, decoder = base
     imgs = bench.images(bench.BATCH, bench.IMAGE_SIZE, device="cuda")
     for mode in ("int8", "bf16"):
-        counters = kernel_counters()
-        for c in counters:
-            c.launches = 0
+        counters = zero_counters()
         one, result = bench.measure(encoder, decoder, imgs, mode)
         torch.cuda.synchronize()
         check_no_kernel(counters, "bench/" + mode, results)
@@ -1426,6 +1462,280 @@ def phase_bench(base, results):
               "bench " + mode, one, result)
         print(json.dumps(one), flush=True)
         print(json.dumps(result), flush=True)
+
+
+# Training shapes: tools/bench_train.py:24-26.
+TRAIN_BATCH, TRAIN_LEN, TRAIN_BATCHES = 32, 25, 20
+RESNET101_GFLOP = 15.6  # forward per 224x224 image (tools/bench_train.py:30)
+F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+
+
+def decoder_train_gflop(b, t):
+    """Model GFLOP of one attention-decoder forward + backward, counted as
+    tools/bench_train.py:40-70 counts them: 3x the forward's products
+    (the hoisted enc_att, init h and c, per decode step att_dec, scores,
+    context, f_beta and the LSTM, then the vocab product)."""
+    td = t - 1
+    fwd = (2 * b * PIX * ENC_DIM * ATT_DIM
+           + 2 * 2 * b * ENC_DIM * DEC_DIM
+           + td * (2 * b * DEC_DIM * ATT_DIM + 2 * b * PIX * ATT_DIM
+                   + 2 * b * PIX * ENC_DIM + 2 * b * DEC_DIM * ENC_DIM
+                   + 2 * b * (EMBED + ENC_DIM + DEC_DIM) * 4 * DEC_DIM)
+           + 2 * b * td * DEC_DIM * VOCAB)
+    return 3.0 * fwd / 1e9
+
+
+def phase_train_step_f32(models, gen, results):
+    """One f32 train step (dropout 0, TF32 off) on the card and on the CPU
+    from the same parameters, batch 4, caption length 12; the decoder's
+    half of the step on both devices from one grid; and both card runs
+    again with TF32 on, a fault that the limits must reject."""
+    import torch
+
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+    from icd_tpu_torch.testing import (SCORE_BIAS, decoder_grads,
+                                       relative_errors, seeded_captions,
+                                       train_step_errors, train_step_record)
+
+    encoder, decoder = models
+    imgs = uint8_images(4, seed=7)
+    captions = seeded_captions(gen, 4, 12, VOCAB, START_ID, END_ID,
+                               min_words=4)
+    lens = torch.full((4,), 11, dtype=torch.int32)
+    lr = 1e-4
+
+    def step(device, tf32=False):
+        return train_step_record(encoder, decoder, imgs, captions, lens,
+                                 device, lr=lr, tf32=tf32)
+
+    def same_grid(device, tf32=False):
+        grads = decoder_grads(decoder, grid, captions, lens, device,
+                              tf32=tf32)
+        return grads, grads.pop(SCORE_BIAS).abs().max().item()
+
+    counters = zero_counters()
+    card = step("cuda")
+    with torch.no_grad():
+        grid, _ = encoder_attention_forward(encoder, imgs.to("cuda"),
+                                             train=True)
+    same_card, card_noise = same_grid("cuda")
+    torch.cuda.synchronize()
+    check_no_kernel(counters, "train_step_f32", results)
+    fault, (fault_same, _) = step("cuda", tf32=True), same_grid("cuda", True)
+    cpu = step("cpu")
+    same_cpu, cpu_noise = same_grid("cpu")
+
+    def readings(run, same):
+        errs = train_step_errors(run, cpu, lr)
+        errs["grads_same_grid"] = relative_errors(same, same_cpu)
+        worst = {key: max(errs[key].values()) for key in (
+            "grads", "exp_avg", "exp_avg_sq", "bn", "grads_same_grid")}
+        worst.update(loss=errs["loss"],
+                     step_share_beyond=errs["step_share_beyond"])
+        return errs, worst
+
+    errs, worst = readings(card, same_card)
+    _, tf32_worst = readings(fault, fault_same)
+    noise = errs["score_bias_grad"] + [card_noise, cpu_noise]
+    g_max = max(g.abs().max().item() for g in same_cpu.values())
+    # Limits, each between the sound reading and TF32's, which is 4.8 to
+    # 6,500 times the limit (PERF.md §6).
+    # The f32 grids differ by ~1e-4 of their scale (cuDNN and the CPU
+    # sum convolutions in other orders): the loss moves 1.3e-6, and BN's
+    # batch statistics 2.6e-5 (channels of tiny variance amplify it).
+    # From one grid the decoder's gradients differ only by sums in other
+    # orders, 2.1e-6. From each device's own grid an element of
+    # relu(att_enc + att_dec) within the grids' difference of zero takes
+    # the other branch on the other device; the attention products'
+    # gradients are small sums over 4.4 M such elements, so a few flips
+    # move them by 4.5 % of their largest value, and Adam's moments
+    # with them. A first Adam step moves an element by less than lr on
+    # either side; by more than lr / 100 apart only where a gradient
+    # element is as small as the devices' difference (7.8e-4 of them).
+    limits = dict(loss=1e-5, bn=1e-4, grads_same_grid=1e-5, grads=0.06,
+                  exp_avg=0.06, exp_avg_sq=0.06, step_share_beyond=1e-2)
+    log("train_step_f32", batch=4, caption_length=12, vocab=VOCAB,
+        loss_card=card["loss"], loss_cpu=cpu["loss"], rel_err_max=worst,
+        limits=limits, tf32_rel_err_max=tf32_worst,
+        grad_rel_err=errs["grads"],
+        grad_rel_err_same_grid=errs["grads_same_grid"], grad_max=g_max,
+        score_bias_grad=noise, k1_launches=0, k2_launches=0)
+    check(math.isfinite(card["loss"]), "train step loss finite",
+          card["loss"])
+    for key, limit in limits.items():
+        check(worst[key] <= limit, "train step {} card vs CPU".format(key),
+              worst[key], limit)
+    check(all(tf32_worst[key] > limit for key, limit in limits.items()),
+          "every limit rejects a TF32 step", tf32_worst)
+    check(max(noise) <= 1e-6 * g_max, "score bias gradient is noise", noise)
+
+
+def phase_train_f32(models, gen, results):
+    """train_epoch over 20 in-memory batches at the training bench's
+    shapes, dropout 0.5, grad_clip 5; then 30 steps on one batch at
+    decoder_lr 1e-3. Returns the trained (encoder, decoder)."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+    from icd_tpu_torch.testing import seeded_captions
+    from icd_tpu_torch.training.attention import (make_train_step,
+                                                  train_epoch,
+                                                  trainable_parameters)
+    from icd_tpu_torch.training.common import make_optimizer
+
+    def trainer(decoder_lr):
+        enc, dec = (copy.deepcopy(m) for m in models)
+        enc_params, dec_params = trainable_parameters(enc, dec)
+        optimizer = make_optimizer(enc_params, dec_params, 1e-4, decoder_lr)
+        return enc, dec, make_train_step(enc, dec, optimizer, 1.0, 0.5, 5.0)
+
+    batches = [dict(imgs=uint8_images(TRAIN_BATCH, seed=100 + i).numpy(),
+                    captions=seeded_captions(gen, TRAIN_BATCH, TRAIN_LEN,
+                                             VOCAB, START_ID,
+                                             END_ID).numpy(),
+                    padded_lengths=np.full(TRAIN_BATCH, TRAIN_LEN, np.int32))
+               for i in range(TRAIN_BATCHES)]
+    enc, dec, step = trainer(1e-4)
+    dropout_gen = torch.Generator("cuda").manual_seed(1)
+    events = []
+
+    def timed_step(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        loss = step(*args)
+        end.record()
+        events.append((start, end))
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # earlier phases' models too
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    losses = train_epoch(timed_step, batches, "cuda", dropout_gen,
+                         print_freq=TRAIN_BATCHES)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    check_no_kernel(counters, "train_f32", results)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    median_ms = step_ms[len(step_ms) // 2]
+    check(len(losses) == TRAIN_BATCHES
+          and all(math.isfinite(x) for x in losses), "train losses", losses)
+
+    imgs, captions, lens = (to_device(a, "cuda") for a in (
+        batches[0]["imgs"], batches[0]["captions"],
+        batches[0]["padded_lengths"] - 1))
+
+    def encode():
+        with torch.no_grad():
+            encoder_attention_forward(enc, imgs, train=True)
+
+    encoder_ms = time_ms(encode, iters=5, warmup=1)
+    _, wall_ms, busy_ms, kernels = profiled(
+        lambda: step(imgs, captions, lens, dropout_gen))
+    gflop = (TRAIN_BATCH * RESNET101_GFLOP
+             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN))
+
+    _, _, learn_step = trainer(1e-3)
+    learn = torch.stack([learn_step(imgs, captions, lens, dropout_gen)
+                         for _ in range(30)]).tolist()
+    log("train_f32", batch=TRAIN_BATCH, caption_length=TRAIN_LEN,
+        vocab=VOCAB, batches=TRAIN_BATCHES, dropout=0.5,
+        median_step_ms=median_ms, step_ms_min_max=[step_ms[0], step_ms[-1]],
+        images_per_s=TRAIN_BATCH / (median_ms / 1e3),
+        epoch_s=epoch_s, epoch_images_per_s=TRAIN_BATCH * TRAIN_BATCHES
+        / epoch_s, encoder_forward_ms=encoder_ms,
+        decoder_fwd_bwd_adam_ms=median_ms - encoder_ms,
+        profiled_step_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=1 - busy_ms / wall_ms,
+        idle_share_of_median_step=1 - busy_ms / median_ms,
+        peak_memory_bytes=peak, resident_before_bytes=resident,
+        model_gflop_per_step=gflop,
+        f32_peak_share=gflop * 1e9 / (median_ms / 1e3) / F32_FLOP_PER_S,
+        losses=[losses[0], losses[-1]], learn_first_last=[learn[0],
+                                                         learn[-1]],
+        top=[dict(name=name[:60], ms=us / 1e3, count=count)
+             for us, count, name in kernels[:8]], card=card_line())
+    check(all(math.isfinite(x) for x in learn)
+          and learn[-1] < 0.8 * learn[0],
+          "30 steps on one batch: the loss falls below 0.8x", learn)
+    return enc, dec
+
+
+def phase_eval_f32(trained, gen, results):
+    """make_eval_step over 130 items in batches of 64, the last of 2 at
+    its own size as ``evaluate`` runs it, f32; every item against the
+    CPU run of the same batches; the first batch again with TF32 on, a
+    fault the loss limit must reject; the scorers on the host."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.metric import get_eval_score
+    from icd_tpu_torch.testing import f32_products, seeded_captions
+    from icd_tpu_torch.training.attention import (make_eval_step,
+                                                  scoring_texts)
+
+    n, batch = 130, 64
+    imgs = uint8_images(n, seed=11).numpy()
+    captions = seeded_captions(gen, n, 20, VOCAB, START_ID, END_ID,
+                               min_words=3).numpy()
+    lengths = (captions != 0).sum(1).astype(np.int32)
+    batches = [tuple(a[i:i + batch] for a in (imgs, captions, lengths - 1))
+               for i in range(0, n, batch)]
+    step = make_eval_step(*trained)
+    f32_products()
+    counters = zero_counters()
+    losses, preds = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        loss, pred = step(*(to_device(a, "cuda") for a in b))
+        losses.append(loss.cpu())
+        preds.append(pred.cpu())
+    eval_s = time.perf_counter() - t0
+    check_no_kernel(counters, "eval_f32", results)
+    losses, preds = torch.cat(losses), torch.cat(preds)
+    check(losses.shape == (n,) and preds.shape == (n, 19)
+          and bool(losses.isfinite().all()), "eval shapes", losses.shape,
+          preds.shape)
+
+    cpu_step = make_eval_step(*(copy.deepcopy(m).cpu() for m in trained))
+    t0 = time.perf_counter()
+    cpu = [cpu_step(*(torch.from_numpy(a) for a in b)) for b in batches]
+    cpu_s = time.perf_counter() - t0
+    cpu_loss = torch.cat([loss for loss, _ in cpu])
+    cpu_pred = torch.cat([pred for _, pred in cpu])
+    loss_err = ((losses - cpu_loss).abs() / cpu_loss.abs()).max().item()
+    mask = np.arange(19)[None, :] < (lengths - 1)[:, None]
+    same = float((preds == cpu_pred).numpy()[mask].mean())
+    f32_products(tf32=True)
+    tf32_loss, _ = step(*(to_device(a, "cuda") for a in batches[0]))
+    f32_products()
+    tf32_err = ((tf32_loss.cpu() - cpu_loss[:batch]).abs()
+                / cpu_loss[:batch].abs()).max().item()
+    os.environ.setdefault("ICD_TPU_METEOR_PY", "1")
+    refs, hyps = scoring_texts(preds.numpy(), captions, lengths,
+                               {START_ID, END_ID, 0})
+    scores = get_eval_score(refs, hyps)
+    log("eval_f32", items=n, batch=batch, seconds=eval_s, cpu_seconds=cpu_s,
+        loss_mean=losses.mean().item(), loss_rel_err_vs_cpu=loss_err,
+        tf32_loss_rel_err_vs_cpu=tf32_err, preds_equal_share_vs_cpu=same,
+        scores=scores, k1_launches=0, k2_launches=0)
+    # The losses inherit the f32 grids' card-vs-CPU difference as the
+    # train step's loss does (3.2e-6); TF32 must land beyond the limit
+    # (1.8e-3).
+    # An argmax can flip only where the top two logits are closer than
+    # the devices' difference.
+    check(loss_err <= 1e-5 < tf32_err, "eval losses card vs CPU, TF32",
+          loss_err, tf32_err)
+    check(same >= 0.99, "eval argmax card vs CPU", same)
+    check(all(math.isfinite(v) and v >= 0 for v in scores.values()),
+          "eval scores", scores)
 
 
 def main():
@@ -1459,6 +1769,9 @@ def main():
     phase_baseline_f32(base, results)
     phase_baseline_serve_bf16(base, act_maxes, results)
     phase_bench(base, results)
+    gen = torch.Generator().manual_seed(7)
+    phase_train_step_f32(models, gen, results)
+    phase_eval_f32(phase_train_f32(models, gen, results), gen, results)
 
     k1 = dict(name="fused_attention", route="cuda",
               source="icd_tpu_torch/csrc/fused_attention.cu",

@@ -1,4 +1,4 @@
-"""Checkpoint load / unpack (port of ``icd_tpu/checkpoint.py:143-170``).
+"""Checkpoint save / load / unpack (port of ``icd_tpu/checkpoint.py:87-170``).
 
 A ``.ckpt`` that ``icd_tpu`` writes is a pickle of numpy pytrees
 (reference protocol: checkpoint.py:8-62), except that
@@ -7,6 +7,12 @@ A ``.ckpt`` that ``icd_tpu`` writes is a pickle of numpy pytrees
 would import optax, and with it jax. The unpickler here maps every class
 of optax, jax and their companions to an inert stand-in instead, so
 loading never imports them; the weights come through as numpy arrays.
+
+``save_checkpoint`` writes the same payload from numpy trees
+(``params.encoder_to_jax`` / ``decoder_to_jax``), so ``icd_tpu`` loads
+and evaluates a checkpoint of the port. The port's optimizer state is a
+plain numpy dict (``params.adam_state_to_jax``), which ``icd_tpu``
+cannot resume from.
 """
 
 import os
@@ -54,6 +60,43 @@ class _CheckpointUnpickler(pickle.Unpickler):
         if module.split(".")[0] in _FOREIGN_PACKAGES:
             return _stand_in(module, name)
         return super().find_class(module, name)
+
+
+def save_checkpoint(args, epoch, encoder, decoder, encoder_optimizer,
+                    decoder_optimizer, metrics):
+    """Write one epoch's training state to
+    ``checkpoints/{model_name}_{epoch}.ckpt`` (checkpoint.py:87;
+    reference: checkpoint.py:39-62). The trees are numpy; the file is
+    written to ``.tmp`` and published with ``os.replace``, so a run
+    killed mid-write never leaves a truncated checkpoint under the real
+    name. Returns the path."""
+    state = {
+        "epoch": epoch,
+        "metrics": metrics,
+        "encoder": encoder,
+        "decoder": decoder,
+        "encoder_optimizer": encoder_optimizer,
+        "decoder_optimizer": decoder_optimizer,
+        "config": {
+            "model_name": getattr(args, "model_name", None),
+            "model": getattr(args, "model", getattr(args, "model_type", None)),
+            "embed_size": getattr(args, "embed_size", None),
+            "decoder_dim": getattr(args, "decoder_dim", None),
+            "attention_dim": getattr(args, "attention_dim", None),
+            "decoder_dropout": getattr(args, "decoder_dropout", None),
+            "use_glove": getattr(args, "use_glove", False),
+            "use_bert": getattr(args, "use_bert", False),
+        },
+    }
+    os.makedirs(PathConfig.checkpoints_dir, exist_ok=True)
+    path = os.path.join(PathConfig.checkpoints_dir,
+                        "{}_{}.ckpt".format(args.model_name, epoch))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(state, f)
+    os.replace(tmp, path)
+    print("Saved checkpoint to {}".format(path))
+    return path
 
 
 def load_checkpoint(args=None, name=None, verbose=True):

@@ -1,15 +1,17 @@
-"""COCO captioning dataset, image side (copy of the parts of
-``icd_tpu/data/dataset.py:59-163`` that ``beam_eval`` uses).
+"""COCO captioning dataset (copy of ``icd_tpu/data/dataset.py:59-178``).
 
 ``COCODataset(mode)`` indexes the split's annotations and keeps the
 reference's caption filter: a caption joins the caption <-> image
 mapping when its *character* length is at most ``caption_max_len``
-(reference: dataset.py:33-34; -1 disables it). ``load_image_batch``
-decodes images with PIL and resizes them to 224 x 224 BILINEAR as uint8
+(reference: dataset.py:33-34; -1 disables it). An item is one caption:
+``(img, caption ids)`` in train mode, and in val mode also the image
+path and every caption of the image (dataset.py:66-71); a caption is
+``word_tokenize(caption.lower())`` wrapped in ``<start>`` / ``<end>``.
+Images are decoded with PIL and resized to 224 x 224 BILINEAR as uint8
 NHWC, as the JAX package's default loader does. PIL is imported inside
-the decode function only: a machine that runs the card path from tensors
-(``chip_smoke.py``) needs no PIL. ``__getitem__``, the tokenizer and the
-opt-in native libjpeg loader come with later slices (ROADMAP.md).
+the decode function only: a machine that runs the card path from
+tensors (``chip_smoke.py``) needs no PIL. The JAX package's speed aids, its
+host image cache and opt-in native libjpeg loader, are not ported.
 """
 
 import os
@@ -17,8 +19,9 @@ import os
 import numpy as np
 
 from ..pathconf import PathConfig
-from ..vocabulary import load_vocab
+from ..vocabulary import END_TOKEN, START_TOKEN, load_vocab
 from .coco import COCO
+from .tokenize import word_tokenize
 
 IMG_SIZE = 224  # transforms.Resize((224, 224)) in every reference entry point.
 
@@ -49,16 +52,35 @@ class COCODataset:
         self.coco = COCO(self.anno_file)
         self.img_ids = list(sorted(self.coco.imgs.keys()))
         self.caption_img_mappings = self._build_caption_img_mappings()
+        self._caption_cache = {}
 
     def _build_caption_img_mappings(self):
         mappings = []
         for img_id in self.img_ids:
-            anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id))
+            anns = self._annotations(img_id)
             mappings.extend(
                 {"caption": ann["caption"], "img_id": img_id}
                 for ann in anns
                 if len(ann["caption"]) <= self.caption_max_len)
         return mappings
+
+    def _annotations(self, img_id):
+        return self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id))
+
+    def _numericalize_caption(self, caption):
+        """int32 ids of ``<start>`` + the caption's tokens + ``<end>``,
+        memoised (val items re-read every caption of their image)."""
+        caption = str(caption)
+        ids = self._caption_cache.get(caption)
+        if ids is None:
+            ids = [self.vocab(START_TOKEN)]
+            ids.extend(self.vocab(token)
+                       for token in word_tokenize(caption.lower()))
+            ids.append(self.vocab(END_TOKEN))
+            ids = np.asarray(ids, dtype=np.int32)
+            ids.flags.writeable = False  # shared across samples
+            self._caption_cache[caption] = ids
+        return ids
 
     def _img_path(self, img_id):
         return os.path.join(
@@ -68,6 +90,17 @@ class COCODataset:
         """Decoded images for the given ids: (N, H, W, 3) uint8."""
         return np.stack([decode_image(self._img_path(i), self.img_size)
                          for i in img_ids])
+
+    def __getitem__(self, idx):
+        mapping = self.caption_img_mappings[idx]
+        img_id = mapping["img_id"]
+        img = decode_image(self._img_path(img_id), self.img_size)
+        caption = self._numericalize_caption(mapping["caption"])
+        if self.mode == "train":
+            return img, caption
+        all_captions = [self._numericalize_caption(ann["caption"])
+                        for ann in self._annotations(img_id)]
+        return img, caption, self._img_path(img_id), all_captions
 
     def __len__(self):
         # Number of captions; an image can have several.

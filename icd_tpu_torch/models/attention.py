@@ -1,5 +1,5 @@
-"""Bahdanau soft-attention LSTM decoder, inference step
-(port of ``icd_tpu/models/attention.py:34-141``; reference:
+"""Bahdanau soft-attention LSTM decoder
+(port of ``icd_tpu/models/attention.py:34-243``; reference:
 models/attention.py:18-284).
 
 Parameter names follow the JAX tree: ``attention.enc_att``,
@@ -7,8 +7,10 @@ Parameter names follow the JAX tree: ``attention.enc_att``,
 ``c_lin``, ``f_beta``, ``fc`` and ``embedding``, each an ``nn.Linear``,
 ``nn.LSTMCell`` or ``nn.Embedding`` (``params.py`` maps the layouts).
 ``decode_step`` takes its attention and gate from K1
-(``ops/fused_attention.py``). The teacher-forced forward comes with the
-training slice.
+(``ops/fused_attention.py``). The teacher-forced forward that training
+and eval differentiate and run, ``attention_decoder_forward``, is plain
+PyTorch under autograd: K1 computes no backward, and the JAX scan does
+not call it either.
 """
 
 import math
@@ -19,8 +21,9 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.fused_attention import fused_attention
+from .baseline import load_pretrained_embeddings  # noqa: F401 (attention.py:79)
 from .encoder import ENCODER_DIM
-from .lstm import init_lstm, lstm_cell
+from .lstm import gates_to_state, init_lstm, lstm_cell
 
 
 class AttentionDecoderParams:
@@ -140,3 +143,79 @@ def decode_step(decoder, encoder_out, att_enc, emb_t, h, c,
     h, c = lstm_cell(decoder.lstm, x, h, c)
     preds = F.linear(h, decoder.fc.weight, decoder.fc.bias)
     return h, c, preds, alpha
+
+
+def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
+                              generator=None, dropout_rate=0.0):
+    """Teacher-forced forward over the whole batch (attention.py:144).
+
+    Args:
+        encoder_out: (B, gh, gw, D) or (B, P, D) encoder grid.
+        captions: (B, T) token ids.
+        decode_lengths: (B,) int tensor, caption_lengths - 1.
+        generator: a ``torch.Generator`` on ``encoder_out``'s device that
+            draws the dropout mask (None disables dropout: eval mode).
+
+    Returns (predictions (B, T - 1, V), alphas (B, T - 1, P)), zero at
+    the steps past a row's decode length; a row that has retired keeps
+    its h and c. As in the JAX scan, the embedding half of the LSTM
+    input product (biases folded in) runs once before the loop, the
+    three products that read h are one product, and dropout and the fc
+    product run once on the stacked states after it.
+    """
+    if encoder_out.dim() == 4:
+        encoder_out = encoder_out.reshape(encoder_out.shape[0], -1,
+                                          encoder_out.shape[-1])
+    att, lstm = decoder.attention, decoder.lstm
+    att_enc = F.linear(encoder_out, att.enc_att.weight) + att.enc_att.bias
+    embeddings = F.embedding(captions, decoder.embedding.weight)
+    steps = captions.shape[1] - 1
+    h, c = init_hidden_state(decoder, encoder_out)
+
+    e = embeddings.shape[-1]
+    emb_x = (F.linear(embeddings[:, :steps], lstm.weight_ih[:, :e])
+             + (lstm.bias_ih + lstm.bias_hh))
+    w_x_enc = lstm.weight_ih[:, e:]
+    sizes = [att.dec_att.out_features, decoder.f_beta.out_features,
+             lstm.weight_hh.shape[0]]
+    w_h = torch.cat([att.dec_att.weight, decoder.f_beta.weight,
+                     lstm.weight_hh])
+    b_h = torch.cat([att.dec_att.bias, decoder.f_beta.bias,
+                     torch.zeros_like(lstm.bias_hh)])
+    w_full, b_full = att.full_att.weight[0], att.full_att.bias[0]
+    active = (torch.arange(steps, device=decode_lengths.device)[None, :]
+              < decode_lengths[:, None])  # (B, T - 1)
+
+    hs, alphas = [], []
+    for t in range(steps):
+        att_dec, gate_pre, h_gates = (F.linear(h, w_h) + b_h).split(sizes,
+                                                                     -1)
+        act = torch.relu(att_enc + att_dec[:, None, :])
+        scores = ((act * w_full).sum(-1, dtype=torch.float32)
+                  + b_full).to(act.dtype)
+        alpha = torch.softmax(scores, dim=-1)
+        weighted = torch.bmm(alpha[:, None, :], encoder_out)[:, 0]
+        weighted = torch.sigmoid(gate_pre) * weighted
+        gates = emb_x[:, t] + F.linear(weighted, w_x_enc) + h_gates
+        new_h, new_c = gates_to_state(gates, c)
+        on = active[:, t, None]
+        h = torch.where(on, new_h, h)
+        c = torch.where(on, new_c, c)
+        hs.append(h)
+        alphas.append(torch.where(on, alpha, 0.0))
+
+    out = torch.stack(hs, dim=1)  # (B, T - 1, H)
+    if generator is not None and dropout_rate > 0.0:
+        out = dropout(out, dropout_rate, generator)
+    preds = F.linear(out, decoder.fc.weight) + decoder.fc.bias
+    preds = torch.where(active[..., None], preds, 0.0)
+    return preds, torch.stack(alphas, dim=1)
+
+
+def dropout(x, rate, generator):
+    """Zero each element with probability ``rate`` and scale the rest by
+    1 / (1 - rate) (attention.py:235-237), the mask drawn from
+    ``generator``, which must live on ``x``'s device."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)

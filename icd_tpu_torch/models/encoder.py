@@ -1,5 +1,5 @@
 """CNN encoder heads over the ResNet-101 backbone
-(port of ``icd_tpu/models/encoder.py:26-106``), eval mode.
+(port of ``icd_tpu/models/encoder.py:26-161``).
 
 - ``encoder_forward``: global-pooled features -> Linear(2048,
   embed_size), (B, embed_size) for the baseline LSTM decoder
@@ -9,7 +9,9 @@
   models/encoder.py:72-110).
 
 Each over the float backbone or the static-int8 one
-(``resnet_int8.py``). The ``embed`` product and its bias are two
+(``resnet_int8.py``); the attention grid also in train mode, which
+returns the backbone's new BN statistics. ``trainable_mask`` says which
+parameters take gradients. The ``embed`` product and its bias are two
 operations, as JAX's ``x @ w + b``: in bf16 ``F.linear`` with a bias
 would add it before the product's one rounding.
 """
@@ -97,16 +99,22 @@ def init_encoder_attention(generator, dtype=torch.float32, device=None):
 
 
 def encoder_attention_forward(encoder, imgs, compute_dtype=None,
-                              grid=ATTENTION_GRID):
-    """(B, H, W, 3) uint8/float -> (B, gh, gw, 2048) grid, eval mode.
+                              grid=ATTENTION_GRID, train=False):
+    """(B, H, W, 3) uint8/float -> (B, gh, gw, 2048) grid (encoder.py:64).
 
     uint8 input gets the ImageNet normalisation (encoder.py:67); float
-    input is fed as it is. Unlike the JAX function this returns only
-    the grid: eval-mode BN leaves the parameters unchanged.
+    input is fed as it is. In eval mode this returns only the grid, as
+    BN leaves the parameters unchanged; with ``train=True`` it returns
+    (grid, new_stats), the backbone's new BN running statistics
+    (``resnet.merge_bn_stats`` stores them).
     """
     x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
-    feats = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype)
-    return adaptive_avg_pool2d(feats, grid)
+    out = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype,
+                         train=train)
+    if not train:
+        return adaptive_avg_pool2d(out, grid)
+    feats, stats = out
+    return adaptive_avg_pool2d(feats, grid), stats
 
 
 def encoder_attention_forward_int8(qresnet, imgs, compute_dtype=torch.bfloat16,
@@ -117,3 +125,20 @@ def encoder_attention_forward_int8(qresnet, imgs, compute_dtype=torch.bfloat16,
     feats = resnet_int8_forward(qresnet, x.to(compute_dtype),
                                 out_dtype=compute_dtype)
     return adaptive_avg_pool2d(feats, grid)
+
+
+def trainable_mask(encoder, fine_tune=False):
+    """{parameter name: takes gradients} over ``encoder`` (encoder.py:109,
+    with ``head=False``: the attention encoder has no head).
+
+    The backbone is frozen (reference: encoder.py:42-43); ``fine_tune``
+    unfreezes stages 2-4 (``layers.1`` to ``layers.3``: children[5:],
+    reference: encoder.py:60-69), convolutions and BN scale and bias.
+    The BN running statistics are buffers, never trained.
+    """
+    mask = {}
+    for name, _ in encoder.named_parameters():
+        parts = name.split(".")  # resnet.layers.<stage>...
+        mask[name] = (fine_tune and parts[:2] == ["resnet", "layers"]
+                      and int(parts[2]) >= 1)
+    return mask

@@ -1,5 +1,4 @@
-"""ResNet-101 backbone, eval mode
-(port of ``icd_tpu/models/resnet.py:37-259``).
+"""ResNet-101 backbone (port of ``icd_tpu/models/resnet.py:37-259``).
 
 Public functions keep the JAX package's NHWC layout. Internally a
 convolution sees ``x.permute(0, 3, 1, 2)``: on a contiguous NHWC tensor
@@ -12,8 +11,12 @@ Parameter names follow the JAX tree: ``stem.conv``, ``stem.bn.scale``,
 kernels are stored OIHW (the JAX tree is HWIO, see ``params.py``). BN
 ``mean``/``var`` are buffers and every other leaf a parameter, so
 "cast the parameters" is ``_cast_keep_bn_stats`` (resnet.py:187).
-Train-mode BN, which updates the running stats, comes with the
-training slice.
+
+Train mode (``resnet_forward(..., train=True)``) normalises with batch
+statistics and returns the blended running statistics beside the
+features, leaving the module as it is; ``merge_bn_stats`` writes them
+back, as the JAX train step threads its new tree back
+(``icd_tpu/training/common.py:115-137``).
 """
 
 import math
@@ -29,6 +32,7 @@ RESNET101_DEPTHS = (3, 4, 23, 3)
 RESNET_WIDTHS = (64, 128, 256, 512)
 EXPANSION = 4
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +65,49 @@ def batch_norm(x, bn, compute_dtype=None):
     inv = torch.rsqrt(bn.var + BN_EPS) * scale
     y = (x - bn.mean) * inv + bias
     return y.to(x.dtype)
+
+
+def batch_norm_train(x, bn, compute_dtype=None):
+    """Train-mode BatchNorm over NHWC channels (resnet.py:48, train=True):
+    (y, {"mean", "var"}), the new running statistics.
+
+    The batch statistics are taken at the running statistics' dtype and
+    normalise with the biased variance; the running variance blends in
+    the unbiased one with ``BN_MOMENTUM``, as torch tracks it. ``bn`` is
+    not changed.
+    """
+    scale, bias = bn.scale, bn.bias
+    if compute_dtype is not None:
+        scale, bias = scale.to(compute_dtype), bias.to(compute_dtype)
+    xs = x.to(bn.mean.dtype)
+    mean = xs.mean(dim=(0, 1, 2))
+    var = (xs - mean).square().mean(dim=(0, 1, 2))
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    unbiased = var * (n / max(n - 1, 1))
+    stats = {"mean": (1 - BN_MOMENTUM) * bn.mean + BN_MOMENTUM * mean,
+             "var": (1 - BN_MOMENTUM) * bn.var + BN_MOMENTUM * unbiased}
+    inv = torch.rsqrt(var + BN_EPS) * scale
+    y = (x - mean) * inv + bias
+    return y.to(x.dtype), stats
+
+
+def _bn(x, bn, compute_dtype, stats):
+    """Eval-mode BN when ``stats`` is None; else train-mode BN, its new
+    running statistics recorded in ``stats`` under the module."""
+    if stats is None:
+        return batch_norm(x, bn, compute_dtype)
+    y, stats[bn] = batch_norm_train(x, bn, compute_dtype)
+    return y
+
+
+def merge_bn_stats(new_stats):
+    """Write the running statistics of a train-mode forward into their
+    BN modules (``icd_tpu/training/common.py:115``: only the statistics,
+    cast to the stored dtype)."""
+    with torch.no_grad():
+        for bn, stats in new_stats.items():
+            bn.mean.copy_(stats["mean"])
+            bn.var.copy_(stats["var"])
 
 
 def max_pool(x, window=3, stride=2, padding=1):
@@ -202,29 +249,32 @@ def _w(p, compute_dtype):
     return p if compute_dtype is None else p.to(compute_dtype)
 
 
-def _bottleneck(block, x, compute_dtype, conv=conv2d):
+def _bottleneck(block, x, compute_dtype, conv=conv2d, stats=None):
     """1x1 -> 3x3(stride) -> 1x1 bottleneck with projection shortcut."""
-    out = batch_norm(conv(x, _w(block.conv1, compute_dtype)),
-                     block.bn1, compute_dtype).relu()
-    out = batch_norm(conv(out, _w(block.conv2, compute_dtype),
-                          stride=block.stride, padding=1),
-                     block.bn2, compute_dtype).relu()
-    out = batch_norm(conv(out, _w(block.conv3, compute_dtype)),
-                     block.bn3, compute_dtype)
+    out = _bn(conv(x, _w(block.conv1, compute_dtype)),
+              block.bn1, compute_dtype, stats).relu()
+    out = _bn(conv(out, _w(block.conv2, compute_dtype),
+                   stride=block.stride, padding=1),
+              block.bn2, compute_dtype, stats).relu()
+    out = _bn(conv(out, _w(block.conv3, compute_dtype)),
+              block.bn3, compute_dtype, stats)
     if block.downsample is not None:
-        shortcut = batch_norm(
+        shortcut = _bn(
             conv(x, _w(block.downsample.conv, compute_dtype),
                  stride=block.stride),
-            block.downsample.bn, compute_dtype)
+            block.downsample.bn, compute_dtype, stats)
     else:
         shortcut = x
     return (out + shortcut).relu()
 
 
-def resnet_forward(resnet, x, compute_dtype=None, conv=None):
-    """Run the backbone in eval mode: NHWC in, NHWC features at stride 32.
+def resnet_forward(resnet, x, compute_dtype=None, conv=None, train=False):
+    """Run the backbone: NHWC in, NHWC features at stride 32 (resnet.py:230).
 
-    (resnet.py:230 with train=False.) ``compute_dtype`` casts the input
+    In eval mode it returns the features. With ``train=True`` BN
+    normalises with batch statistics and it returns (features,
+    new_stats), ``new_stats`` mapping each BN module to its new running
+    statistics (``merge_bn_stats`` stores them). ``compute_dtype`` casts the input
     and the parameters but not the BN statistics; a module already at
     that dtype (``cast_keep_bn_stats``) is used without a copy. With no
     ``compute_dtype`` the input takes the weights' dtype. ``conv``
@@ -238,10 +288,11 @@ def resnet_forward(resnet, x, compute_dtype=None, conv=None):
         x = x.to(resnet.stem.conv.dtype)
     else:
         x = x.to(compute_dtype)
+    stats = {} if train else None
     out = conv(x, _w(resnet.stem.conv, compute_dtype), stride=2, padding=3)
-    out = batch_norm(out, resnet.stem.bn, compute_dtype).relu()
+    out = _bn(out, resnet.stem.bn, compute_dtype, stats).relu()
     out = max_pool(out, window=3, stride=2, padding=1)
     for blocks in resnet.layers:
         for block in blocks:
-            out = _bottleneck(block, out, compute_dtype, conv)
-    return out
+            out = _bottleneck(block, out, compute_dtype, conv, stats)
+    return out if stats is None else (out, stats)

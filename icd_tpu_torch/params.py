@@ -15,6 +15,13 @@ Shapes are read off the tree, so any ResNet depth or decoder width
 converts. ``*_to_jax`` are the inverses and return float32 numpy trees.
 Converted modules live on the CPU; move them with ``.to(device)``.
 
+Adam's state crosses the same bridge: ``adam_state_to_jax`` writes the
+port's optimizer state as ``{"count", "mu", "nu"}``, numpy trees keyed
+like the JAX trainable tree (``{"decoder": {...}}``, frozen leaves left
+out, JAX layouts), and ``adam_state_from_jax`` reads that or an
+``icd_tpu`` checkpoint's optax state back into ``torch.optim.Adam``
+state.
+
 The quantized trees (``quantize_resnet``'s,
 ``quantize_attention_decoder``'s and ``quantize_baseline_decoder``'s)
 are dicts of tensors with the JAX tree's keys and values; ``qresnet_*``
@@ -198,16 +205,109 @@ def decoder_to_jax(dec):
         return {"embedding": _numpy(dec.embedding.weight),
                 "lstm": _lstm_to(dec.lstm),
                 "linear": _linear_to(dec.linear)}
-    return {
-        "attention": {name: _linear_to(getattr(dec.attention, name))
-                      for name in ("enc_att", "dec_att", "full_att")},
-        "lstm": _lstm_to(dec.lstm),
-        "h_lin": _linear_to(dec.h_lin),
-        "c_lin": _linear_to(dec.c_lin),
-        "f_beta": _linear_to(dec.f_beta),
-        "fc": _linear_to(dec.fc),
-        "embedding": _numpy(dec.embedding.weight),
-    }
+    tree = {}
+    for path, param, transposed in attention_leaves(dec):
+        value = _numpy(param)
+        _put(tree, path, value.T.copy() if transposed else value)
+    return tree
+
+
+def attention_leaves(dec):
+    """(path in the JAX tree, parameter, stored transposed) for every
+    parameter of an ``AttentionDecoder``."""
+    leaves = []
+    for name in ("enc_att", "dec_att", "full_att"):
+        lin = getattr(dec.attention, name)
+        leaves += [(("attention", name, "w"), lin.weight, True),
+                   (("attention", name, "b"), lin.bias, False)]
+    cell = dec.lstm
+    leaves += [(("lstm", "wi"), cell.weight_ih, True),
+               (("lstm", "wh"), cell.weight_hh, True),
+               (("lstm", "bi"), cell.bias_ih, False),
+               (("lstm", "bh"), cell.bias_hh, False)]
+    for name in ("h_lin", "c_lin", "f_beta", "fc"):
+        lin = getattr(dec, name)
+        leaves += [((name, "w"), lin.weight, True),
+                   ((name, "b"), lin.bias, False)]
+    leaves.append((("embedding",), dec.embedding.weight, False))
+    return leaves
+
+
+def _put(tree, path, value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _get(tree, path):
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Adam state
+# ---------------------------------------------------------------------------
+
+def adam_state_to_jax(optimizer, dec):
+    """The port's checkpoint form of ``optimizer``'s state over the
+    attention decoder ``dec``: ``{"count": int32, "mu": tree, "nu": tree}``,
+    the trees keyed like the JAX trainable tree, holding the parameters
+    the optimizer has stepped."""
+    count, mu, nu = 0, {}, {}
+    for path, param, transposed in attention_leaves(dec):
+        state = optimizer.state.get(param)
+        if not state:
+            continue
+        count = int(state["step"])
+        for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            value = _numpy(state[key])
+            _put(tree, ("decoder",) + path,
+                 value.T.copy() if transposed else value)
+    return {"count": np.int32(count), "mu": mu, "nu": nu}
+
+
+def _optax_adam_states(node):
+    """Every optax ``ScaleByAdamState`` (an inert stand-in, see
+    ``checkpoint.py``) in a checkpoint's optimizer state."""
+    if getattr(node, "source", "").endswith(".ScaleByAdamState"):
+        yield node
+    elif isinstance(node, dict):
+        for value in node.values():
+            yield from _optax_adam_states(value)
+    elif isinstance(node, (tuple, list)):
+        for value in node:
+            yield from _optax_adam_states(value)
+
+
+def adam_state_from_jax(state, dec):
+    """``torch.optim.Adam`` state, {parameter: {"step", "exp_avg",
+    "exp_avg_sq"}}, for the parameters of the attention decoder ``dec``
+    that ``state`` holds moments for, on their devices. ``state`` is the
+    port's checkpoint form (``adam_state_to_jax``) or ``icd_tpu``'s optax
+    state: ``multi_transform`` -> ``masked`` -> (clip, (ScaleByAdamState
+    (count, mu, nu), ...)) per parameter group."""
+    if isinstance(state, dict) and "mu" in state:
+        adams = [(state["count"], state["mu"], state["nu"])]
+    else:
+        adams = [tuple(s) for s in _optax_adam_states(state)]
+    out = {}
+    for count, mu, nu in adams:
+        for path, param, transposed in attention_leaves(dec):
+            m, v = (_get(tree, ("decoder",) + path) for tree in (mu, nu))
+            if not isinstance(m, np.ndarray):
+                continue  # frozen (None) or another group's (MaskedNode)
+
+            def moment(x):
+                x = np.asarray(x, np.float32)
+                t = torch.from_numpy(x.T.copy() if transposed else x.copy())
+                return t.to(device=param.device, dtype=param.dtype)
+
+            out[param] = {"step": torch.tensor(float(count)),
+                          "exp_avg": moment(m), "exp_avg_sq": moment(v)}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@ and K1's likewise: the span from its first block's start to its last
 block's end. The int8 products (``torch._int_mm``, cuBLASLt) sum
 integers: card and CPU give the same int32 sums, and the int8 encoder
 the same grid. Greedy captioners in f32 with TF32 off give the same
-tokens on card and CPU.
+tokens on card and CPU. Training: one f32 step agrees on card and CPU
+(the limits are at the test), and the train and eval drivers run on the
+card by default and launch neither K1 nor K2.
 """
 
 import contextlib
@@ -42,7 +44,8 @@ from icd_tpu_torch.models.attention import (AttentionDecoderParams,
                                             init_attention_decoder)
 from icd_tpu_torch.models.baseline import (BaselineDecoderParams,
                                            init_baseline_decoder)
-from icd_tpu_torch.models.encoder import Encoder, EncoderAttention
+from icd_tpu_torch.models.encoder import (Encoder, EncoderAttention,
+                                          encoder_attention_forward)
 from icd_tpu_torch.models.resnet import init_resnet
 from icd_tpu_torch.models.resnet_int8 import calibrate_act_maxes
 from icd_tpu_torch.ops import fused_beam
@@ -52,7 +55,10 @@ from icd_tpu_torch.ops.fused_beam import (beam_search_fused,
                                           beam_search_fused_reference)
 from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
 from icd_tpu_torch.ops.quant import conv2d_int8, gemm_layout, int_mm
-from icd_tpu_torch.testing import steered_decoder
+from icd_tpu_torch.testing import (SCORE_BIAS, decoder_grads,
+                                   relative_errors, seeded_captions,
+                                   steered_decoder, train_step_errors,
+                                   train_step_record)
 
 
 @pytest.fixture
@@ -537,3 +543,163 @@ def test_int8_beam_captioner_on_card_matches_cpu(card, loop):
         assert torch.equal(outs[0][key].cpu(), outs[1][key]), key
     torch.testing.assert_close(outs[0]["alphas"].cpu(), outs[1]["alphas"],
                                atol=1e-4, rtol=0)
+
+
+def _small_train_problem(seed=6):
+    """A (1, 1, 1, 1) ResNet of widths (4, 8, 8, 16), a steered V = 60
+    decoder (A = 32, H = 48, E = 16), 4 images, captions of length 12."""
+    gen = torch.Generator().manual_seed(seed)
+    encoder = EncoderAttention(init_resnet(gen, (1, 1, 1, 1), (4, 8, 8, 16),
+                                           device="cpu"))
+    decoder = steered_decoder(60, 32, 48, 16, 64, seed, device="cpu")
+    imgs = torch.randint(0, 256, (4, 64, 64, 3), generator=gen,
+                         dtype=torch.uint8)
+    captions = seeded_captions(gen, 4, 12, 60, 57, 58, min_words=4)
+    return encoder, decoder, imgs, captions, torch.full((4,), 11,
+                                                        dtype=torch.int32)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One f32 train step with TF32 off (dropout 0, clipping biting).
+
+    From one grid the decoder's gradients agree within 1e-5 of each
+    tensor's largest value (sums in other orders). Through each device's
+    own grid, the loss within rtol 1e-5 and the new BN statistics within
+    1e-5; an element of relu(att_enc + att_dec) within the grids'
+    difference of zero takes the other branch on the other device, so
+    gradients and Adam's moments are held to 1e-2 of their largest value,
+    and the updated parameters to at most 1 % of elements more than
+    lr / 100 apart (one step is below lr on each side, so no element can
+    be 2 lr apart). The score bias's gradient is zero in exact
+    arithmetic: noise below 1e-6.
+    """
+    encoder, decoder, imgs, captions, lens = _small_train_problem()
+    lr = 1e-3
+    card_run, cpu_run = (train_step_record(encoder, decoder, imgs, captions,
+                                           lens, dev, lr=lr, grad_clip=0.05)
+                         for dev in (card, "cpu"))
+    errs = train_step_errors(card_run, cpu_run, lr)
+    assert errs["loss"] <= 1e-5 and max(errs["score_bias_grad"]) < 1e-6
+    assert max(errs["bn"].values()) <= 1e-5, errs["bn"]
+    for key in ("grads", "exp_avg", "exp_avg_sq"):
+        assert max(errs[key].values()) <= 1e-2, (key, errs[key])
+    assert errs["step_share_beyond"] <= 1e-2
+    with torch.no_grad():
+        grid, _ = encoder_attention_forward(encoder, imgs, train=True)
+    same = [decoder_grads(decoder, grid, captions, lens, dev)
+            for dev in (card, "cpu")]
+    for grads in same:
+        assert grads.pop(SCORE_BIAS).abs().max() < 1e-6
+    errs = relative_errors(*same)
+    assert max(errs.values()) <= 1e-5, errs
+
+
+class _MemoryVocab:
+    """The four special tokens of a 60-word vocabulary."""
+
+    w2i = {"<pad>": 0, "<start>": 57, "<end>": 58, "<unk>": 59}
+
+    def __call__(self, word):
+        return self.w2i.get(word, 59)
+
+    def __len__(self):
+        return 60
+
+
+class _MemoryCaptions:
+    """COCODataset's interface over six seeded in-memory items (no PIL,
+    no files): (img, caption) in train mode, and in val mode also a
+    path and the image's captions."""
+
+    def __init__(self, mode, caption_max_len=-1):
+        gen = torch.Generator().manual_seed(8 if mode == "train" else 9)
+        self.mode, self.vocab = mode, _MemoryVocab()
+        self.imgs = torch.randint(0, 256, (6, 64, 64, 3), generator=gen,
+                                  dtype=torch.uint8).numpy()
+        self.captions = [row[:int((row != 0).sum())].numpy() for row in
+                         seeded_captions(gen, 6, 10, 60, 57, 58, min_words=3)]
+
+    def __len__(self):
+        return 6
+
+    def __getitem__(self, i):
+        if self.mode == "train":
+            return self.imgs[i], self.captions[i]
+        return self.imgs[i], self.captions[i], "img{}".format(i), [
+            self.captions[i]]
+
+
+def test_train_and_eval_drivers_run_on_the_card(card, tmp_path,
+                                                monkeypatch):
+    """training.attention.train and evaluate with no device given run on
+    the card (two epochs over in-memory items, then eval of the saved
+    trees), and neither launches K1 or K2."""
+    import argparse
+
+    import icd_tpu_torch.training.attention as ta
+    from icd_tpu_torch.checkpoint import load_checkpoint
+
+    monkeypatch.setenv("ICD_TPU_ROOT", str(tmp_path))
+    monkeypatch.setenv("ICD_TPU_ALLOW_NO_METEOR", "1")
+    monkeypatch.setattr(ta, "COCODataset", _MemoryCaptions)
+    monkeypatch.setattr(ta, "init_encoder_attention", lambda gen, device:
+                        EncoderAttention(init_resnet(gen, (1, 1, 1, 1),
+                                                     (4, 8, 8, 16),
+                                                     device=device)))
+    monkeypatch.setattr(ta, "init_attention_decoder", functools.partial(
+        init_attention_decoder, encoder_dim=64))
+    args = argparse.Namespace(
+        model_name="card", model="attention", attention_dim=32,
+        decoder_dim=48, decoder_dropout=0.5, embed_size=16, epochs=2,
+        batch_size=4, workers=0, encoder_lr=1e-4, decoder_lr=1e-3,
+        grad_clip=5.0, alpha_c=1.0, fine_tune_encoder=False,
+        fine_tune_embedding=False, checkpoint=None, print_freq=1,
+        use_glove=False, max_caption_length=-1, use_bert=False)
+    fused_attention.launches = beam_search_fused.launches = 0
+    encoder, decoder = ta.train(args)
+    assert next(decoder.parameters()).device.type == "cuda"
+    assert next(encoder.parameters()).device.type == "cuda"
+    chkpt = load_checkpoint(name="card_1.ckpt")
+    losses = chkpt["metrics"]["epoch_losses"]
+    assert len(losses) == 2 and all(len(e) == 2 for e in losses)
+    assert int(chkpt["decoder_optimizer"]["count"]) == 4
+    metrics = ta.evaluate(args, chkpt["encoder"], chkpt["decoder"])
+    assert len(metrics["losses"]) == 6
+    assert all(math.isfinite(v) for v in metrics["losses"])
+    assert (fused_attention.launches, beam_search_fused.launches) == (0, 0)
+
+
+_NO_CARD = """
+import sys
+from icd_tpu_torch import eval as port_eval, train as port_train
+from icd_tpu_torch.device import resolve_device
+from icd_tpu_torch.training.attention import evaluate, train
+calls = [lambda: port_train.main(["x", "--model", "attention"]),
+         lambda: port_eval.main(["x.ckpt", "--model_type", "attention"]),
+         lambda: train(None), lambda: evaluate(None, None, None)]
+for call in calls:
+    try:
+        call()
+    except RuntimeError as err:
+        assert "device='cpu'" in str(err), err
+    else:
+        sys.exit("no error")
+print(resolve_device("cpu"))
+"""
+
+
+def test_training_entry_points_raise_with_the_card_hidden(card, tmp_path):
+    """With the card hidden (CUDA_VISIBLE_DEVICES empty) the train and
+    eval entry points raise unless asked for the CPU; nothing falls back
+    to the CPU quietly."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=repo,
+               ICD_TPU_ROOT=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", _NO_CARD], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "cpu"

@@ -37,6 +37,20 @@ def test_package_imports_no_jax_and_no_icd_tpu():
     assert foreign == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "icd_tpu_torch.train", "icd_tpu_torch.eval", "icd_tpu_torch.init",
+    "icd_tpu_torch.training.attention", "icd_tpu_torch.metric"])
+def test_training_modules_import_no_jax_and_no_icd_tpu(module):
+    code = ("import sys, {}; print(sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu', "
+            "'PIL')))".format(module))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -69,3 +83,21 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
         bench.main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.measure(None, None, None, "int8")
+
+
+def test_training_entry_points_do_not_fall_back_to_the_cpu(use_coco_root):
+    from helpers import make_train_args
+    from icd_tpu_torch import eval as port_eval
+    from icd_tpu_torch import train as port_train
+    from icd_tpu_torch.training.attention import evaluate, train
+
+    _no_card()
+    args = make_train_args(model="attention")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate(args, None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_train.main(["x", "--model", "attention"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_eval.main(["x.ckpt", "--model_type", "attention"])

@@ -197,8 +197,14 @@ def check(ok, what, *values):
             what, values))
 
 
+STARTED = time.perf_counter()
+
+
 def log(phase, **fields):
-    print(json.dumps(dict(phase=phase, **fields)), flush=True)
+    """One JSON line of a phase's readings, with the seconds since the
+    script started."""
+    print(json.dumps(dict(phase=phase, **fields, elapsed_s=round(
+        time.perf_counter() - STARTED, 1))), flush=True)
 
 
 def kernel_counters():
@@ -1570,43 +1576,36 @@ def phase_train_step_f32(models, gen, results):
     check(max(noise) <= 1e-6 * g_max, "score bias gradient is noise", noise)
 
 
-def phase_train_f32(models, gen, results):
-    """train_epoch over 20 in-memory batches at the training bench's
-    shapes, dropout 0.5, grad_clip 5; then 30 steps on one batch at
-    decoder_lr 1e-3. Returns the trained (encoder, decoder)."""
+def train_batches(gen, n, seed):
+    """``n`` in-memory batches at the training bench's shapes: seeded uint8
+    images and Zipf captions (testing.seeded_captions)."""
     import numpy as np
+
+    from icd_tpu_torch.testing import seeded_captions
+
+    return [dict(imgs=uint8_images(TRAIN_BATCH, seed=seed + i).numpy(),
+                 captions=seeded_captions(gen, TRAIN_BATCH, TRAIN_LEN, VOCAB,
+                                          START_ID, END_ID).numpy(),
+                 padded_lengths=np.full(TRAIN_BATCH, TRAIN_LEN, np.int32))
+            for i in range(n)]
+
+
+def train_readings(run, batches, encode, light_s):
+    """common.train_epoch of ``run`` (batch -> loss) over ``batches`` with
+    CUDA events around each step, then ``encode`` (the frozen encoder's
+    forward) timed alone and one step under torch.profiler. ``light_s``:
+    the step's model FLOPs at the row's dense peaks, in seconds."""
     import torch
 
-    from icd_tpu_torch.bench import card_line
-    from icd_tpu_torch.data.pipeline import to_device
     from icd_tpu_torch.k1_bench import time_ms
-    from icd_tpu_torch.models.encoder import encoder_attention_forward
-    from icd_tpu_torch.testing import seeded_captions
-    from icd_tpu_torch.training.attention import (make_train_step,
-                                                  train_epoch,
-                                                  trainable_parameters)
-    from icd_tpu_torch.training.common import make_optimizer
+    from icd_tpu_torch.training.common import train_epoch
 
-    def trainer(decoder_lr):
-        enc, dec = (copy.deepcopy(m) for m in models)
-        enc_params, dec_params = trainable_parameters(enc, dec)
-        optimizer = make_optimizer(enc_params, dec_params, 1e-4, decoder_lr)
-        return enc, dec, make_train_step(enc, dec, optimizer, 1.0, 0.5, 5.0)
-
-    batches = [dict(imgs=uint8_images(TRAIN_BATCH, seed=100 + i).numpy(),
-                    captions=seeded_captions(gen, TRAIN_BATCH, TRAIN_LEN,
-                                             VOCAB, START_ID,
-                                             END_ID).numpy(),
-                    padded_lengths=np.full(TRAIN_BATCH, TRAIN_LEN, np.int32))
-               for i in range(TRAIN_BATCHES)]
-    enc, dec, step = trainer(1e-4)
-    dropout_gen = torch.Generator("cuda").manual_seed(1)
     events = []
 
-    def timed_step(*args):
+    def timed(batch):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
-        loss = step(*args)
+        loss = run(batch)
         end.record()
         events.append((start, end))
         return loss
@@ -1614,56 +1613,92 @@ def phase_train_f32(models, gen, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()  # earlier phases' models too
-    counters = zero_counters()
     t0 = time.perf_counter()
-    losses = train_epoch(timed_step, batches, "cuda", dropout_gen,
-                         print_freq=TRAIN_BATCHES)
+    losses = train_epoch(timed, batches, print_freq=len(batches))
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    check_no_kernel(counters, "train_f32", results)
     peak = torch.cuda.max_memory_allocated()
     step_ms = sorted(s.elapsed_time(e) for s, e in events)
     median_ms = step_ms[len(step_ms) // 2]
-    check(len(losses) == TRAIN_BATCHES
+    check(len(losses) == len(batches)
           and all(math.isfinite(x) for x in losses), "train losses", losses)
-
-    imgs, captions, lens = (to_device(a, "cuda") for a in (
-        batches[0]["imgs"], batches[0]["captions"],
-        batches[0]["padded_lengths"] - 1))
-
-    def encode():
-        with torch.no_grad():
-            encoder_attention_forward(enc, imgs, train=True)
-
     encoder_ms = time_ms(encode, iters=5, warmup=1)
-    _, wall_ms, busy_ms, kernels = profiled(
-        lambda: step(imgs, captions, lens, dropout_gen))
-    gflop = (TRAIN_BATCH * RESNET101_GFLOP
-             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN))
-
-    _, _, learn_step = trainer(1e-3)
-    learn = torch.stack([learn_step(imgs, captions, lens, dropout_gen)
-                         for _ in range(30)]).tolist()
-    log("train_f32", batch=TRAIN_BATCH, caption_length=TRAIN_LEN,
-        vocab=VOCAB, batches=TRAIN_BATCHES, dropout=0.5,
+    _, wall_ms, busy_ms, kernels = profiled(lambda: run(batches[0]))
+    return dict(
         median_step_ms=median_ms, step_ms_min_max=[step_ms[0], step_ms[-1]],
-        images_per_s=TRAIN_BATCH / (median_ms / 1e3),
-        epoch_s=epoch_s, epoch_images_per_s=TRAIN_BATCH * TRAIN_BATCHES
-        / epoch_s, encoder_forward_ms=encoder_ms,
+        images_per_s=TRAIN_BATCH / (median_ms / 1e3), epoch_s=epoch_s,
+        epoch_images_per_s=TRAIN_BATCH * len(batches) / epoch_s,
+        encoder_forward_ms=encoder_ms,
         decoder_fwd_bwd_adam_ms=median_ms - encoder_ms,
         profiled_step_wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1 - busy_ms / wall_ms,
         idle_share_of_median_step=1 - busy_ms / median_ms,
         peak_memory_bytes=peak, resident_before_bytes=resident,
-        model_gflop_per_step=gflop,
-        f32_peak_share=gflop * 1e9 / (median_ms / 1e3) / F32_FLOP_PER_S,
-        losses=[losses[0], losses[-1]], learn_first_last=[learn[0],
-                                                         learn[-1]],
+        peak_share=light_s / (median_ms / 1e3),
+        losses=[losses[0], losses[-1]],
         top=[dict(name=name[:60], ms=us / 1e3, count=count)
-             for us, count, name in kernels[:8]], card=card_line())
+             for us, count, name in kernels[:8]])
+
+
+def learns(trainer, batch, what):
+    """30 steps of a fresh ``trainer`` (decoder_lr 1e-3) on one batch: the
+    loss must fall below 0.8x its first value."""
+    import torch
+
+    learn = torch.stack([trainer(batch) for _ in range(30)]).tolist()
     check(all(math.isfinite(x) for x in learn)
           and learn[-1] < 0.8 * learn[0],
-          "30 steps on one batch: the loss falls below 0.8x", learn)
+          what + ": 30 steps on one batch, the loss falls below 0.8x", learn)
+    return [learn[0], learn[-1]]
+
+
+def attention_trainer(models, decoder_lr, compute_dtype=None):
+    """A fresh copy of the attention model and its train step on a batch
+    (dropout 0.5, grad_clip 5, Adam), and the copy's encoder."""
+    import torch
+
+    from icd_tpu_torch.training.attention import batch_step, make_train_step
+    from icd_tpu_torch.training.common import (make_optimizer,
+                                               trainable_parameters)
+
+    enc, dec = (copy.deepcopy(m) for m in models)
+    enc_params, dec_params = trainable_parameters(enc, dec)
+    optimizer = make_optimizer(enc_params, dec_params, 1e-4, decoder_lr)
+    step = make_train_step(enc, dec, optimizer, 1.0, 0.5, 5.0, compute_dtype)
+    dropout_gen = torch.Generator("cuda").manual_seed(1)
+    return batch_step(step, "cuda", dropout_gen), enc, dec
+
+
+def phase_train_f32(models, gen, results):
+    """train_epoch over 20 in-memory batches at the training bench's
+    shapes, dropout 0.5, grad_clip 5; then 30 steps on one batch at
+    decoder_lr 1e-3. Returns the trained (encoder, decoder)."""
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+
+    batches = train_batches(gen, TRAIN_BATCHES, seed=100)
+    run, enc, dec = attention_trainer(models, 1e-4)
+    imgs = to_device(batches[0]["imgs"], "cuda")
+
+    def encode():
+        with torch.no_grad():
+            encoder_attention_forward(enc, imgs, train=True)
+
+    gflop = (TRAIN_BATCH * RESNET101_GFLOP
+             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN))
+    counters = zero_counters()
+    row = train_readings(run, batches, encode, gflop * 1e9 / F32_FLOP_PER_S)
+    check_no_kernel(counters, "train_f32", results)
+    learn = learns(attention_trainer(models, 1e-3)[0], batches[0],
+                   "train_f32")
+    row["f32_peak_share"] = row.pop("peak_share")
+    log("train_f32", batch=TRAIN_BATCH, caption_length=TRAIN_LEN,
+        vocab=VOCAB, batches=TRAIN_BATCHES, dropout=0.5,
+        model_gflop_per_step=gflop, learn_first_last=learn, **row,
+        card=card_line())
     return enc, dec
 
 
@@ -1738,6 +1773,406 @@ def phase_eval_f32(trained, gen, results):
           "eval scores", scores)
 
 
+INT8_OPS_PER_S = 1979e12  # H100 SXM, dense int8 (NVIDIA data sheet)
+
+
+def baseline_train_gflop(b, t):
+    """Model GFLOP of one baseline-decoder forward + backward, counted as
+    tools/bench_train.py:40-50 counts them: 3x the forward's products
+    (the encoder head, the LSTM's gates over t steps, the vocab
+    product)."""
+    fwd = (2 * b * ENC_DIM * EMBED
+           + 2 * b * t * (EMBED + DEC_DIM) * 4 * DEC_DIM
+           + 2 * b * t * DEC_DIM * VOCAB)
+    return 3.0 * fwd / 1e9
+
+
+def train_baseline_models(models):
+    """The baseline model to train: full_width_models' ResNet-101 (its BN
+    re-estimated; the trainers copy it) with a seeded Linear(2048, 512)
+    head and a seeded V=10,000, E=H=512 decoder, f32 on the card, <end>
+    not pinned (the captions end with it)."""
+    import torch
+
+    from icd_tpu_torch.models.baseline import (BaselineDecoderParams,
+                                               init_baseline_decoder)
+    from icd_tpu_torch.models.encoder import Encoder, init_embed
+
+    gen = torch.Generator().manual_seed(13)
+    embed = init_embed(gen, EMBED, device="cuda")
+    params = BaselineDecoderParams()
+    params.vocab_size, params.embed_size = VOCAB, EMBED
+    params.hidden_size = DEC_DIM
+    decoder = init_baseline_decoder(gen, params, device="cuda")
+    return Encoder(models[0].resnet, embed), decoder
+
+
+def baseline_trainer(base, decoder_lr, compute_dtype=None, warm=None):
+    """A fresh copy of the baseline model and its train step on a batch
+    (grad_clip 5, Adam, the head frozen as by default); with ``warm``
+    (batches) its trunk is warmed up and quantized for --int8_encoder.
+    Returns (step, encoder, decoder, int8 trunk or None)."""
+    from icd_tpu_torch.training.baseline import batch_step, make_train_step
+    from icd_tpu_torch.training.common import (make_optimizer,
+                                               prepare_int8_encoder,
+                                               trainable_parameters)
+
+    enc, dec = (copy.deepcopy(m) for m in base)
+    qresnet = None
+    if warm is not None:
+        qresnet = prepare_int8_encoder(enc.resnet, warm, compute_dtype)
+    enc_params, dec_params = trainable_parameters(enc, dec)
+    optimizer = make_optimizer(enc_params, dec_params, 1e-4, decoder_lr)
+    step = make_train_step(enc, dec, optimizer, 0, 5.0, compute_dtype,
+                           qresnet)
+    return batch_step(step, "cuda"), enc, dec, qresnet
+
+
+def worst_errors(run, want, lr, extra=()):
+    """train_step_errors of ``run`` against ``want``, each table's largest
+    entry, beside the loss's and the share beyond lr / 100."""
+    from icd_tpu_torch.testing import train_step_errors
+
+    errs = train_step_errors(run, want, lr)
+    worst = {key: max(errs[key].values())
+             for key in ("grads", "exp_avg", "exp_avg_sq", "bn") + extra}
+    worst.update(loss=errs["loss"],
+                 step_share_beyond=errs["step_share_beyond"])
+    return errs, worst
+
+
+def phase_train_baseline_step_f32(base, gen, results):
+    """One f32 baseline step (TF32 off, head trained) on the card and on
+    the CPU from the same parameters, batch 4, caption length 12; the
+    card's again with TF32 on, a fault that every limit must reject."""
+    import torch
+
+    from icd_tpu_torch.testing import seeded_captions, train_step_record
+
+    imgs = uint8_images(4, seed=12)
+    captions = seeded_captions(gen, 4, 12, VOCAB, START_ID, END_ID,
+                               min_words=4)
+    lr = 1e-4
+
+    def step(device, tf32=False):
+        return train_step_record(*base, imgs, captions, None, device, lr=lr,
+                                 tf32=tf32)
+
+    counters = zero_counters()
+    card = step("cuda")
+    torch.cuda.synchronize()
+    check_no_kernel(counters, "train_baseline_step_f32", results)
+    fault = step("cuda", tf32=True)
+    cpu = step("cpu")
+    errs, worst = worst_errors(card, cpu, lr)
+    _, tf32_worst = worst_errors(fault, cpu, lr)
+    check({"embed.weight", "embed.bias"} <= set(card["grads"]),
+          "the head trains", sorted(card["grads"]))
+    # Limits, each between the sound reading and TF32's (PERF.md §6): the
+    # features differ by ~1e-4 of their scale (cuDNN and the CPU sum the
+    # trunk's convolutions in other orders) and the LSTM has no kink, so
+    # gradients and Adam's moments move by 0.9e-4 to 1.7e-4, BN's
+    # statistics by 2.8e-5, and 8.7e-5 of the updated elements land more
+    # than lr / 100 apart; TF32 moves them by 5.4e-2, 9.1e-2, 1.5e-2 and
+    # 1.6e-2. The random decoder's logits are small and its loss sits at
+    # log V: the f32 and the TF32 step give the card's loss equal to the
+    # CPU's, so the loss is held to its limit but cannot tell TF32 apart.
+    limits = dict(loss=1e-5, bn=1e-4, grads=1e-3, exp_avg=1e-3,
+                  exp_avg_sq=1e-3, step_share_beyond=1e-3)
+    log("train_baseline_step_f32", batch=4, caption_length=12, vocab=VOCAB,
+        loss_card=card["loss"], loss_cpu=cpu["loss"], rel_err_max=worst,
+        limits=limits, tf32_rel_err_max=tf32_worst,
+        grad_rel_err=errs["grads"], k1_launches=0, k2_launches=0)
+    check(math.isfinite(card["loss"]), "baseline step loss finite",
+          card["loss"])
+    for key, limit in limits.items():
+        check(worst[key] <= limit,
+              "baseline step {} card vs CPU".format(key), worst[key], limit)
+    check(all(tf32_worst[key] > limit for key, limit in limits.items()
+              if key != "loss"),
+          "every limit but the loss's rejects a TF32 baseline step",
+          tf32_worst)
+
+
+def phase_train_baseline(base, gen, results):
+    """The training bench's baseline workload (batch 32, caption length
+    25, V = 10,000), 20 in-memory steps in each of its rows: f32, amp
+    and amp + int8 encoder; then 30 steps on one batch in f32 and in amp.
+    Returns the f32 row's trained (encoder, decoder)."""
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.k1_bench import BF16_FLOP_PER_S
+    from icd_tpu_torch.models.encoder import (encoder_forward,
+                                              encoder_forward_int8)
+
+    bf16 = torch.bfloat16
+    batches = train_batches(gen, TRAIN_BATCHES, seed=200)
+    imgs = to_device(batches[0]["imgs"], "cuda")
+    trunk = TRAIN_BATCH * RESNET101_GFLOP
+    dec_gflop = baseline_train_gflop(TRAIN_BATCH, TRAIN_LEN)
+    rows, trained = {}, None
+    for name, dtype, int8, trunk_peak, dec_peak in (
+            ("f32", None, False, F32_FLOP_PER_S, F32_FLOP_PER_S),
+            ("amp", bf16, False, BF16_FLOP_PER_S, BF16_FLOP_PER_S),
+            ("amp_int8", bf16, True, INT8_OPS_PER_S, BF16_FLOP_PER_S)):
+        run, enc, dec, qresnet = baseline_trainer(
+            base, 1e-4, dtype, batches if int8 else None)
+
+        def encode():
+            with torch.no_grad():
+                if qresnet is None:
+                    encoder_forward(enc, imgs, compute_dtype=dtype,
+                                    train=True)
+                else:
+                    encoder_forward_int8(enc, qresnet, imgs, dtype)
+
+        counters = zero_counters()
+        rows[name] = train_readings(
+            run, batches, encode,
+            trunk * 1e9 / trunk_peak + dec_gflop * 1e9 / dec_peak)
+        check_no_kernel(counters, "train_baseline/" + name, results)
+        if trained is None:
+            trained = (enc, dec)
+    learn = {name: learns(baseline_trainer(base, 1e-3, dtype)[0],
+                          batches[0], "train_baseline " + name)
+             for name, dtype in (("f32", None), ("amp", bf16))}
+    log("train_baseline", batch=TRAIN_BATCH, caption_length=TRAIN_LEN,
+        vocab=VOCAB, batches=TRAIN_BATCHES, model_gflop_per_step=trunk
+        + dec_gflop, **rows, learn_first_last=learn, card=card_line())
+    return trained
+
+
+def phase_train_amp_step(models, base, gen, results):
+    """One --amp step of each family on the card and on the CPU from the
+    same parameters (batch 4, caption length 12, dropout 0); then 20
+    attention --amp steps at train_f32's shapes."""
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.k1_bench import BF16_FLOP_PER_S
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+    from icd_tpu_torch.testing import seeded_captions, train_step_record
+
+    bf16 = torch.bfloat16
+    imgs = uint8_images(4, seed=14)
+    captions = seeded_captions(gen, 4, 12, VOCAB, START_ID, END_ID,
+                               min_words=4)
+    lens = torch.full((4,), 11, dtype=torch.int32)
+    lr = 1e-4
+    # bf16 roundings land differently on the two devices (cuBLAS and
+    # cuDNN against the CPU's kernels): the limits of
+    # tests/test_torch_cuda.py's amp step, but for BN's statistics, which
+    # are taken from bf16 activations whose roundings compound through
+    # the 104 BN layers of ResNet-101: 3.0e-2 apart at full depth
+    # (PERF.md §6), 1e-1 allowed.
+    limits = dict(loss=1e-2, bn=1e-1, step_share_beyond=0.1)
+    steps = {}
+    for family, (encoder, decoder), dl in (("baseline", base, None),
+                                           ("attention", models, lens)):
+        counters = zero_counters()
+        card = train_step_record(encoder, decoder, imgs, captions, dl, "cuda",
+                                 lr=lr, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        check_no_kernel(counters, "train_amp_step/" + family, results)
+        cpu = train_step_record(encoder, decoder, imgs, captions, dl, "cpu",
+                                lr=lr, compute_dtype=bf16)
+        _, worst = worst_errors(card, cpu, lr)
+        steps[family] = dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                             rel_err_max=worst)
+        check(math.isfinite(card["loss"]), family + " amp loss finite")
+        for key, limit in limits.items():
+            check(worst[key] <= limit, "{} amp step {} card vs CPU".format(
+                family, key), worst[key], limit)
+        for key in ("params", "exp_avg", "exp_avg_sq", "bn"):
+            check(all(t.dtype == torch.float32 for t in card[key].values()),
+                  family + " amp: f32 " + key)
+        start = dict(list(encoder.named_parameters())
+                     + list(decoder.named_parameters()))
+        same = all(torch.equal(v, start[n].detach().cpu())
+                   for n, v in card["frozen"].items())
+        check(same, family + " amp: frozen weights bit-identical")
+        before = dict(encoder.named_buffers())
+        check(any(not torch.equal(v, before[n].cpu())
+                  for n, v in card["bn"].items()),
+              family + " amp: BN statistics updated")
+
+    batches = train_batches(gen, TRAIN_BATCHES, seed=400)
+    run, enc, _ = attention_trainer(models, 1e-4, bf16)
+    first = to_device(batches[0]["imgs"], "cuda")
+
+    def encode():
+        with torch.no_grad():
+            encoder_attention_forward(enc, first, compute_dtype=bf16,
+                                      train=True)
+
+    gflop = (TRAIN_BATCH * RESNET101_GFLOP
+             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN))
+    counters = zero_counters()
+    row = train_readings(run, batches, encode,
+                         gflop * 1e9 / BF16_FLOP_PER_S)
+    check_no_kernel(counters, "train_amp_step/attention_steps", results)
+    log("train_amp_step", batch=4, caption_length=12, vocab=VOCAB,
+        limits=limits, **steps, attention_amp=dict(
+            batch=TRAIN_BATCH, caption_length=TRAIN_LEN,
+            batches=TRAIN_BATCHES, dropout=0.5,
+            model_gflop_per_step=gflop, **row),
+        k1_launches=0, k2_launches=0, card=card_line())
+
+
+def site_act_maxes(qresnet):
+    """Each site's calibrated act_max (127 / inv_in), in call order."""
+    import numpy as np
+
+    sites = [qresnet["stem"]] + [
+        block[k] for blocks in qresnet["layers"] for block in blocks
+        for k in ("conv1", "conv2", "conv3", "downsample") if k in block]
+    return np.array([127.0 / float(site["inv_in"]) for site in sites])
+
+
+def phase_train_int8_step(models, base, gen, results):
+    """--int8_encoder on the card and on the CPU: warm-up (16 batches of 4
+    images, f32 train-mode BN) and f32 calibration of the shared trunk on
+    each device; then one int8 step of each family from the card's int8
+    tree on both devices."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.models.encoder import Encoder, EncoderAttention
+    from icd_tpu_torch.testing import (relative_errors, seeded_captions,
+                                       train_step_record)
+    from icd_tpu_torch.training.common import (INT8_BN_WARMUP_BATCHES,
+                                               prepare_int8_encoder)
+
+    warm = [dict(imgs=uint8_images(4, seed=300 + i).numpy())
+            for i in range(INT8_BN_WARMUP_BATCHES)]
+    prepared = {}
+    for device in ("cuda", "cpu"):
+        counters = zero_counters()
+        resnet = copy.deepcopy(models[0].resnet).to(device)
+        t0 = time.perf_counter()
+        qresnet = prepare_int8_encoder(resnet, warm, None)
+        prepared[device] = (resnet, qresnet, time.perf_counter() - t0)
+        check_no_kernel(counters, "train_int8_step/prepare_" + device,
+                        results)
+    stats = relative_errors(
+        dict(prepared["cuda"][0].named_buffers()),
+        {n: b.to("cuda") for n, b in prepared["cpu"][0].named_buffers()})
+    act_max = {d: site_act_maxes(p[1]) for d, p in prepared.items()}
+    act_err = float(np.max(np.abs(act_max["cuda"] - act_max["cpu"])
+                           / act_max["cpu"]))
+    imgs = uint8_images(4, seed=16)
+    captions = seeded_captions(gen, 4, 12, VOCAB, START_ID, END_ID,
+                               min_words=4)
+    lens = torch.full((4,), 11, dtype=torch.int32)
+    resnet, qresnet, _ = prepared["cuda"]
+    warmed = {n: b.cpu() for n, b in resnet.named_buffers()}
+    steps = {}
+    for family, encoder, decoder, dl in (
+            ("baseline", Encoder(resnet, base[0].embed), base[1], None),
+            ("attention", EncoderAttention(resnet), models[1], lens)):
+        counters = zero_counters()
+        card = train_step_record(encoder, decoder, imgs, captions, dl, "cuda",
+                                 lr=1e-4, qresnet=qresnet)
+        torch.cuda.synchronize()
+        check_no_kernel(counters, "train_int8_step/" + family, results)
+        cpu = train_step_record(encoder, decoder, imgs, captions, dl, "cpu",
+                                lr=1e-4, qresnet=qresnet)
+        loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        unchanged = all(torch.equal(run["bn"]["resnet." + n], b)
+                        for run in (card, cpu) for n, b in warmed.items())
+        steps[family] = dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                             loss_rel_err=loss_err,
+                             bn_unchanged=unchanged)
+        # The int32 sums and the f32 epilogue are the same on both
+        # devices; only the decoder's f32 sums run in other orders.
+        check(loss_err <= 1e-5, family + " int8 step loss card vs CPU",
+              loss_err)
+        check(unchanged, family + " int8 step: BN statistics unchanged")
+    log("train_int8_step", warmup_batches=len(warm), warmup_batch=4,
+        prepare_s={d: p[2] for d, p in prepared.items()},
+        warmed_bn_rel_err_max=max(stats.values()),
+        act_max_rel_err_max=act_err, **steps, k1_launches=0, k2_launches=0)
+    # The warm-up's 16 f32 train-mode steps on each device: BN statistics
+    # move by the convolutions' sums in other orders (one step: 2.6e-5,
+    # PR 7), and so do the calibrated ranges.
+    check(max(stats.values()) <= 1e-3, "warmed BN statistics card vs CPU",
+          max(stats.values()))
+    check(act_err <= 1e-3, "calibrated act_maxes card vs CPU", act_err)
+
+
+def phase_eval_baseline_f32(trained, gen, results):
+    """The baseline's make_eval_step over 130 items in batches of 64 (the
+    last, of 2, at its own size, as evaluate runs it), f32; every item
+    against the CPU run of the same batches; the first batch again with
+    TF32 on, a fault the loss limit must reject; the scorers on the
+    host."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.metric import get_eval_score
+    from icd_tpu_torch.testing import f32_products, seeded_captions
+    from icd_tpu_torch.training.baseline import make_eval_step, scoring_texts
+
+    n, batch = 130, 64
+    imgs = uint8_images(n, seed=17).numpy()
+    captions = seeded_captions(gen, n, 20, VOCAB, START_ID, END_ID,
+                               min_words=3).numpy()
+    lengths = (captions != 0).sum(1).astype(np.int32)
+    batches = [tuple(a[i:i + batch] for a in (imgs, captions, lengths))
+               for i in range(0, n, batch)]
+    step = make_eval_step(*trained)
+    f32_products()
+    counters = zero_counters()
+    losses, preds = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        loss, pred = step(*(to_device(a, "cuda") for a in b))
+        losses.append(loss.cpu())
+        preds.append(pred.cpu())
+    eval_s = time.perf_counter() - t0
+    check_no_kernel(counters, "eval_baseline_f32", results)
+    losses, preds = torch.cat(losses), torch.cat(preds)
+    check(losses.shape == (n,) and preds.shape == (n, 20)
+          and bool(losses.isfinite().all()), "baseline eval shapes",
+          losses.shape, preds.shape)
+
+    cpu_step = make_eval_step(*(copy.deepcopy(m).cpu() for m in trained))
+    t0 = time.perf_counter()
+    cpu = [cpu_step(*(torch.from_numpy(a) for a in b)) for b in batches]
+    cpu_s = time.perf_counter() - t0
+    cpu_loss = torch.cat([loss for loss, _ in cpu])
+    cpu_pred = torch.cat([pred for _, pred in cpu])
+    loss_err = ((losses - cpu_loss).abs() / cpu_loss.abs()).max().item()
+    mask = np.arange(20)[None, :] < lengths[:, None]
+    same = float((preds == cpu_pred).numpy()[mask].mean())
+    f32_products(tf32=True)
+    tf32_loss, _ = step(*(to_device(a, "cuda") for a in batches[0]))
+    f32_products()
+    tf32_err = ((tf32_loss.cpu() - cpu_loss[:batch]).abs()
+                / cpu_loss[:batch].abs()).max().item()
+    os.environ.setdefault("ICD_TPU_METEOR_PY", "1")
+    refs, hyps = scoring_texts(preds.numpy(), captions, lengths,
+                               {START_ID, END_ID, 0})
+    scores = get_eval_score(refs, hyps)
+    log("eval_baseline_f32", items=n, batch=batch, seconds=eval_s,
+        cpu_seconds=cpu_s, loss_mean=losses.mean().item(),
+        loss_rel_err_vs_cpu=loss_err, tf32_loss_rel_err_vs_cpu=tf32_err,
+        preds_equal_share_vs_cpu=same, scores=scores, k1_launches=0,
+        k2_launches=0)
+    # As eval_f32: the features' card-vs-CPU difference moves the losses
+    # below the limit, TF32 beyond it; an argmax flips only where the top
+    # two logits are closer than the devices' difference.
+    check(loss_err <= 1e-5 < tf32_err, "baseline eval losses card vs CPU, "
+          "TF32", loss_err, tf32_err)
+    check(same >= 0.99, "baseline eval argmax card vs CPU", same)
+    check(all(math.isfinite(v) and v >= 0 for v in scores.values()),
+          "baseline eval scores", scores)
+
+
 def main():
     import torch
 
@@ -1772,6 +2207,13 @@ def main():
     gen = torch.Generator().manual_seed(7)
     phase_train_step_f32(models, gen, results)
     phase_eval_f32(phase_train_f32(models, gen, results), gen, results)
+    base = train_baseline_models(models)
+    phase_train_baseline_step_f32(base, gen, results)
+    trained = phase_train_baseline(base, gen, results)
+    phase_train_amp_step(models, base, gen, results)
+    phase_train_int8_step(models, base, gen, results)
+    phase_eval_baseline_f32(trained, gen, results)
+    log("total", seconds=time.perf_counter() - STARTED)
 
     k1 = dict(name="fused_attention", route="cuda",
               source="icd_tpu_torch/csrc/fused_attention.cu",

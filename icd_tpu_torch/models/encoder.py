@@ -9,7 +9,7 @@
   models/encoder.py:72-110).
 
 Each over the float backbone or the static-int8 one
-(``resnet_int8.py``); the attention grid also in train mode, which
+(``resnet_int8.py``), and over the float one also in train mode, which
 returns the backbone's new BN statistics. ``trainable_mask`` says which
 parameters take gradients. The ``embed`` product and its bias are two
 operations, as JAX's ``x @ w + b``: in bf16 ``F.linear`` with a bias
@@ -66,20 +66,32 @@ def _embed(embed, pooled):
     return F.linear(pooled.to(embed.weight.dtype), embed.weight) + embed.bias
 
 
-def encoder_forward(encoder, imgs, compute_dtype=None, conv=None):
-    """(B, H, W, 3) uint8/float -> (B, embed_size) features, eval mode
-    (encoder.py:51). ``conv`` replaces the backbone's convolution (the
-    dynamic ``ops.quant.int8_conv``). Unlike the JAX function this
-    returns only the features, as ``encoder_attention_forward`` does."""
+def encoder_forward(encoder, imgs, compute_dtype=None, conv=None,
+                    train=False):
+    """(B, H, W, 3) uint8/float -> (B, embed_size) features (encoder.py:51).
+
+    ``conv`` replaces the backbone's convolution (the dynamic
+    ``ops.quant.int8_conv``). In eval mode this returns only the features,
+    as ``encoder_attention_forward`` does; with ``train=True`` it returns
+    (features, new_stats), the backbone's new BN running statistics.
+    ``compute_dtype`` applies to the backbone only: the pooled features
+    are cast to the head's dtype, so under --amp the head computes in
+    f32 (encoder.py:58-60).
+    """
     x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
-    feats = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype,
-                           conv=conv)
-    return _embed(encoder.embed, global_avg_pool(feats))
+    out = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype,
+                         conv=conv, train=train)
+    if not train:
+        return _embed(encoder.embed, global_avg_pool(out))
+    feats, stats = out
+    return _embed(encoder.embed, global_avg_pool(feats)), stats
 
 
 def encoder_forward_int8(encoder, qresnet, imgs, compute_dtype=torch.bfloat16):
     """``encoder_forward`` over the static-int8 backbone ``qresnet``
-    (encoder.py:75); only ``encoder.embed`` is read."""
+    (encoder.py:75); only ``encoder.embed`` is read. The trunk's output
+    takes ``compute_dtype``: bf16 when serving, f32 when --int8_encoder
+    trains without --amp (training/baseline.py:114-118)."""
     x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
     feats = resnet_int8_forward(qresnet, x.to(compute_dtype),
                                 out_dtype=compute_dtype)
@@ -127,18 +139,23 @@ def encoder_attention_forward_int8(qresnet, imgs, compute_dtype=torch.bfloat16,
     return adaptive_avg_pool2d(feats, grid)
 
 
-def trainable_mask(encoder, fine_tune=False):
-    """{parameter name: takes gradients} over ``encoder`` (encoder.py:109,
-    with ``head=False``: the attention encoder has no head).
+def trainable_mask(encoder, fine_tune=False, head=True):
+    """{parameter name: takes gradients} over ``encoder`` (encoder.py:109).
 
     The backbone is frozen (reference: encoder.py:42-43); ``fine_tune``
     unfreezes stages 2-4 (``layers.1`` to ``layers.3``: children[5:],
     reference: encoder.py:60-69), convolutions and BN scale and bias.
-    The BN running statistics are buffers, never trained.
+    The BN running statistics are buffers, never trained. ``head`` marks
+    the baseline's ``embed`` head trainable; the reference optimises it
+    only with --fine_tune_encoder (baseline.py:158-163), so the driver
+    passes ``head=args.fine_tune_encoder``.
     """
     mask = {}
     for name, _ in encoder.named_parameters():
-        parts = name.split(".")  # resnet.layers.<stage>...
-        mask[name] = (fine_tune and parts[:2] == ["resnet", "layers"]
-                      and int(parts[2]) >= 1)
+        parts = name.split(".")  # resnet.layers.<stage>... or embed.*
+        if parts[0] == "embed":
+            mask[name] = head
+        else:
+            mask[name] = (fine_tune and parts[:2] == ["resnet", "layers"]
+                          and int(parts[2]) >= 1)
     return mask

@@ -17,10 +17,11 @@ Converted modules live on the CPU; move them with ``.to(device)``.
 
 Adam's state crosses the same bridge: ``adam_state_to_jax`` writes the
 port's optimizer state as ``{"count", "mu", "nu"}``, numpy trees keyed
-like the JAX trainable tree (``{"decoder": {...}}``, frozen leaves left
+like the JAX trainable tree (``{"decoder": {...}}``, and ``{"encoder":
+{"embed": ...}}`` when the baseline's head trains; frozen leaves left
 out, JAX layouts), and ``adam_state_from_jax`` reads that or an
 ``icd_tpu`` checkpoint's optax state back into ``torch.optim.Adam``
-state.
+state, for either model family.
 
 The quantized trees (``quantize_resnet``'s,
 ``quantize_attention_decoder``'s and ``quantize_baseline_decoder``'s)
@@ -160,12 +161,6 @@ def _lstm_from(cell, tree):
     cell.bias_hh.data = _tensor(tree["bh"])
 
 
-def _lstm_to(cell):
-    return {"wi": _numpy(cell.weight_ih).T.copy(),
-            "wh": _numpy(cell.weight_hh).T.copy(),
-            "bi": _numpy(cell.bias_ih), "bh": _numpy(cell.bias_hh)}
-
-
 def decoder_from_jax(tree):
     """``AttentionDecoder`` from a JAX attention-decoder tree, or
     ``BaselineDecoder`` from a baseline one (it has ``linear``)."""
@@ -201,12 +196,8 @@ def _baseline_decoder_from_jax(tree):
 
 
 def decoder_to_jax(dec):
-    if isinstance(dec, BaselineDecoder):
-        return {"embedding": _numpy(dec.embedding.weight),
-                "lstm": _lstm_to(dec.lstm),
-                "linear": _linear_to(dec.linear)}
     tree = {}
-    for path, param, transposed in attention_leaves(dec):
+    for path, param, transposed in decoder_leaves(dec):
         value = _numpy(param)
         _put(tree, path, value.T.copy() if transposed else value)
     return tree
@@ -220,16 +211,42 @@ def attention_leaves(dec):
         lin = getattr(dec.attention, name)
         leaves += [(("attention", name, "w"), lin.weight, True),
                    (("attention", name, "b"), lin.bias, False)]
-    cell = dec.lstm
-    leaves += [(("lstm", "wi"), cell.weight_ih, True),
-               (("lstm", "wh"), cell.weight_hh, True),
-               (("lstm", "bi"), cell.bias_ih, False),
-               (("lstm", "bh"), cell.bias_hh, False)]
+    leaves += _lstm_leaves(dec.lstm)
     for name in ("h_lin", "c_lin", "f_beta", "fc"):
-        lin = getattr(dec, name)
-        leaves += [((name, "w"), lin.weight, True),
-                   ((name, "b"), lin.bias, False)]
+        leaves += _linear_leaves((name,), getattr(dec, name))
     leaves.append((("embedding",), dec.embedding.weight, False))
+    return leaves
+
+
+def _lstm_leaves(cell):
+    return [(("lstm", "wi"), cell.weight_ih, True),
+            (("lstm", "wh"), cell.weight_hh, True),
+            (("lstm", "bi"), cell.bias_ih, False),
+            (("lstm", "bh"), cell.bias_hh, False)]
+
+
+def _linear_leaves(path, lin):
+    return [(path + ("w",), lin.weight, True),
+            (path + ("b",), lin.bias, False)]
+
+
+def decoder_leaves(dec):
+    """``attention_leaves``, or the same for a ``BaselineDecoder``:
+    ``embedding``, ``lstm.{wi,wh,bi,bh}``, ``linear.{w,b}``."""
+    if not isinstance(dec, BaselineDecoder):
+        return attention_leaves(dec)
+    return ([(("embedding",), dec.embedding.weight, False)]
+            + _lstm_leaves(dec.lstm) + _linear_leaves(("linear",), dec.linear))
+
+
+def trainable_leaves(dec, encoder=None):
+    """The leaves Adam may step, keyed like the JAX trainable tree: the
+    decoder's under ``"decoder"`` and, for a baseline ``Encoder``, its
+    ``embed`` head's under ``"encoder"``."""
+    leaves = [(("decoder",) + path, param, transposed)
+              for path, param, transposed in decoder_leaves(dec)]
+    if isinstance(encoder, Encoder):
+        leaves += _linear_leaves(("encoder", "embed"), encoder.embed)
     return leaves
 
 
@@ -251,21 +268,21 @@ def _get(tree, path):
 # Adam state
 # ---------------------------------------------------------------------------
 
-def adam_state_to_jax(optimizer, dec):
-    """The port's checkpoint form of ``optimizer``'s state over the
-    attention decoder ``dec``: ``{"count": int32, "mu": tree, "nu": tree}``,
-    the trees keyed like the JAX trainable tree, holding the parameters
-    the optimizer has stepped."""
+def adam_state_to_jax(optimizer, dec, encoder=None):
+    """The port's checkpoint form of ``optimizer``'s state over the decoder
+    ``dec`` (and the baseline ``encoder``'s head):
+    ``{"count": int32, "mu": tree, "nu": tree}``, the trees keyed like the
+    JAX trainable tree, holding the parameters the optimizer has
+    stepped."""
     count, mu, nu = 0, {}, {}
-    for path, param, transposed in attention_leaves(dec):
+    for path, param, transposed in trainable_leaves(dec, encoder):
         state = optimizer.state.get(param)
         if not state:
             continue
         count = int(state["step"])
         for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
             value = _numpy(state[key])
-            _put(tree, ("decoder",) + path,
-                 value.T.copy() if transposed else value)
+            _put(tree, path, value.T.copy() if transposed else value)
     return {"count": np.int32(count), "mu": mu, "nu": nu}
 
 
@@ -282,21 +299,23 @@ def _optax_adam_states(node):
             yield from _optax_adam_states(value)
 
 
-def adam_state_from_jax(state, dec):
+def adam_state_from_jax(state, dec, encoder=None):
     """``torch.optim.Adam`` state, {parameter: {"step", "exp_avg",
-    "exp_avg_sq"}}, for the parameters of the attention decoder ``dec``
-    that ``state`` holds moments for, on their devices. ``state`` is the
-    port's checkpoint form (``adam_state_to_jax``) or ``icd_tpu``'s optax
-    state: ``multi_transform`` -> ``masked`` -> (clip, (ScaleByAdamState
-    (count, mu, nu), ...)) per parameter group."""
+    "exp_avg_sq"}}, for the parameters of the decoder ``dec`` (and the
+    baseline ``encoder``'s head) that ``state`` holds moments for, on
+    their devices. ``state`` is the port's checkpoint form
+    (``adam_state_to_jax``) or ``icd_tpu``'s optax state:
+    ``multi_transform`` -> ``masked`` -> (clip, (ScaleByAdamState
+    (count, mu, nu), ...)) per parameter group, each group's moment trees
+    holding a ``MaskedNode`` at the other group's leaves."""
     if isinstance(state, dict) and "mu" in state:
         adams = [(state["count"], state["mu"], state["nu"])]
     else:
         adams = [tuple(s) for s in _optax_adam_states(state)]
     out = {}
     for count, mu, nu in adams:
-        for path, param, transposed in attention_leaves(dec):
-            m, v = (_get(tree, ("decoder",) + path) for tree in (mu, nu))
+        for path, param, transposed in trainable_leaves(dec, encoder):
+            m, v = (_get(tree, path) for tree in (mu, nu))
             if not isinstance(m, np.ndarray):
                 continue  # frozen (None) or another group's (MaskedNode)
 

@@ -1,6 +1,6 @@
 """Helpers of the card tests and ``chip_smoke.py``: random decoders that
-finish their captions, seeded captions, and one train step recorded for
-comparison across devices.
+finish their captions, seeded captions, and one train step of either
+model family recorded for comparison across devices.
 
 A random decoder never emits ``<end>`` among thousands of near-equal
 logits, so every beam search would run to its step limit. ``steer_end``
@@ -87,39 +87,59 @@ def f32_products(tf32=False):
 
 def train_step_record(encoder, decoder, imgs, captions, decode_lengths,
                       device, lr=1e-4, grad_clip=5.0, alpha_c=1.0,
-                      tf32=False):
+                      tf32=False, compute_dtype=None, qresnet=None):
     """One train step (dropout 0, f32 with TF32 off unless ``tf32``) of
-    copies of ``encoder`` and ``decoder`` on ``device``. Returns the loss
-    and, as CPU tensors keyed by name, the decoder's gradients before
-    clipping (``grads``), its updated parameters (``params``), Adam's
-    moments (``exp_avg``, ``exp_avg_sq``) and the encoder's new BN
-    statistics (``bn``)."""
-    from .training.attention import make_train_step, trainable_parameters
-    from .training.common import make_optimizer
+    copies of ``encoder`` and ``decoder`` on ``device``, at
+    ``compute_dtype`` (bf16: --amp) and over the int8 trunk ``qresnet``
+    (--int8_encoder) when given. A baseline decoder (``decode_lengths``
+    None) trains with its encoder's head (--fine_tune_encoder) and <pad>
+    0. Returns the loss and, as CPU tensors keyed by name, the gradients
+    before clipping (``grads``), the updated parameters (``params``),
+    Adam's moments (``exp_avg``, ``exp_avg_sq``) and the encoder's BN
+    statistics after the step (``bn``), and the frozen parameters
+    (``frozen``)."""
+    from .models.resnet_int8 import tree_to
+    from .training import attention, baseline
+    from .training.common import make_optimizer, trainable_parameters
 
     f32_products(tf32)
     encoder = copy.deepcopy(encoder).to(device)
     decoder = copy.deepcopy(decoder).to(device)
-    enc_params, dec_params = trainable_parameters(encoder, decoder)
+    if qresnet is not None:
+        qresnet = tree_to(qresnet, device)
+    head = decode_lengths is None
+    enc_params, dec_params = trainable_parameters(encoder, decoder,
+                                                  head=head)
     optimizer = make_optimizer(enc_params, dec_params, lr, lr)
+
     def host(t):  # a copy: on the CPU, .cpu() would alias what clipping
         return t.detach().to("cpu", copy=True)  # and Adam change in place
 
-    grads, names = {}, {p: n for n, p in decoder.named_parameters()}
-    for p in dec_params:
+    names = {p: n for n, p in list(decoder.named_parameters())
+             + list(encoder.named_parameters())}
+    grads, trained = {}, enc_params + dec_params
+    for p in trained:
         p.register_hook(lambda g, n=names[p]: grads.__setitem__(n, host(g)))
-    step = make_train_step(encoder, decoder, optimizer, alpha_c, 0.0,
-                           grad_clip)
-    loss = step(imgs.to(device), captions.to(device),
-                decode_lengths.to(device)).item()
+    if head:
+        step = baseline.make_train_step(encoder, decoder, optimizer, 0,
+                                        grad_clip, compute_dtype, qresnet)
+        loss = step(imgs.to(device), captions.to(device))
+    else:
+        step = attention.make_train_step(encoder, decoder, optimizer,
+                                         alpha_c, 0.0, grad_clip,
+                                         compute_dtype, qresnet)
+        loss = step(imgs.to(device), captions.to(device),
+                    decode_lengths.to(device))
     state = {names[p]: s for p, s in optimizer.state.items()}
     return {
-        "loss": loss,
+        "loss": loss.item(),
         "grads": grads,
-        "params": {names[p]: host(p) for p in dec_params},
+        "params": {names[p]: host(p) for p in trained},
         "exp_avg": {n: host(s["exp_avg"]) for n, s in state.items()},
         "exp_avg_sq": {n: host(s["exp_avg_sq"]) for n, s in state.items()},
         "bn": {n: host(b) for n, b in encoder.named_buffers()},
+        "frozen": {n: host(p) for p, n in names.items()
+                   if not p.requires_grad},
     }
 
 
@@ -159,14 +179,15 @@ def train_step_errors(got, want, lr):
     share of the updated parameters' elements that differ by more than
     lr / 100 (a first Adam step moves each element by less than lr on
     either side, so their largest difference is below 2 lr whatever the
-    gradients). The score
-    bias's gradient is zero in exact arithmetic (the softmax ignores a
-    shift of every score), so its gradient and moments are left out of
-    the relative errors and its largest gradient on each side is
-    returned as ``score_bias_grad``."""
+    gradients). The attention model's score bias's gradient is zero in
+    exact arithmetic (the softmax ignores a shift of every score), so
+    its gradient and moments are left out of the relative errors and its
+    largest gradient on each side is returned as ``score_bias_grad``
+    (empty for the baseline)."""
     out = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
            "score_bias_grad": [r["grads"][SCORE_BIAS].abs().max().item()
-                               for r in (got, want)]}
+                               for r in (got, want)
+                               if SCORE_BIAS in r["grads"]]}
     for key in ("grads", "exp_avg", "exp_avg_sq", "bn"):
         out[key] = relative_errors(
             {n: t for n, t in got[key].items() if n != SCORE_BIAS},

@@ -1,22 +1,29 @@
 """Train CLI of the port, with the flags of the root ``train.py``
 (train.py:29-93) plus ``--device``::
 
-    python -m icd_tpu_torch.train <model_name> --model attention
+    python -m icd_tpu_torch.train <model_name> --model baseline|attention
         [--attention_dim 512] [--decoder_dim 512] [--decoder_dropout 0.5]
         [--embed_size 512] [--epochs 1] [--batch_size 32] [--workers 1]
         [--encoder_lr 1e-4] [--decoder_lr 1e-4] [--grad_clip 5.]
         [--alpha_c 1.] [--fine_tune_embedding True] [--checkpoint NAME]
         [--print_freq 1] [--use_glove True] [--max_caption_length -1]
+        [--fine_tune_encoder True] [--amp True] [--int8_encoder True]
         [--device cuda|cpu]
 
-Trains the attention captioner in f32 with TF32 off
-(``training.attention.train``) and writes
-``checkpoints/<model_name>_<epoch>.ckpt`` each epoch, which ``icd_tpu``
-loads. ``--checkpoint`` resumes from a checkpoint of the port or of
-``icd_tpu``. Bool flags parse as the reference's (``type=bool``: any
-non-empty string is True), ``--amp`` and ``--int8_encoder`` strictly.
-``--model baseline``, ``--use_bert``, ``--amp`` and ``--int8_encoder``
-raise ``NotImplementedError``: they are not ported yet (ROADMAP.md).
+Trains the baseline or the attention captioner
+(``training.baseline.train``, ``training.attention.train``), in f32
+with TF32 off, or with ``--amp True`` in bf16 over f32 master weights,
+Adam moments, loss and BN statistics; ``--int8_encoder True`` runs the
+frozen trunk as the static-int8 ResNet-101 (16 batches of train-mode
+BN warm-up, then calibration; BN statistics do not update while
+training). Each epoch writes ``checkpoints/<model_name>_<epoch>.ckpt``,
+which ``icd_tpu`` loads. ``--checkpoint`` resumes from a checkpoint of
+the port or of ``icd_tpu``. ``--fine_tune_encoder`` trains the
+baseline's ``embed`` head. Bool flags parse as the reference's
+(``type=bool``: any non-empty string is True), ``--amp`` and
+``--int8_encoder`` strictly. ``--use_glove`` needs ``--embed_size 300``;
+``--use_bert`` needs ``--model attention`` and ``--embed_size 768``, and
+raises ``NotImplementedError``: BERT is not ported yet (ROADMAP.md).
 """
 
 import argparse
@@ -85,9 +92,12 @@ def build_parser():
                         help="whether to use BERT embeddigns for attention "
                              "model.")
     parser.add_argument("--amp", type=_strict_bool, default=False,
-                        help="bf16 mixed-precision training (not ported)")
+                        help="bf16 mixed-precision training (f32 master "
+                             "weights, loss, optimizer and BN statistics)")
     parser.add_argument("--int8_encoder", type=_strict_bool, default=False,
-                        help="int8 frozen encoder in training (not ported)")
+                        help="run the frozen encoder backbone as the "
+                             "static-calibration int8 trunk during training "
+                             "(BN running statistics do not update)")
     parser.add_argument("--device", type=str, default=None,
                         choices=["cuda", "cpu"],
                         help="where to run (default: cuda)")
@@ -99,17 +109,12 @@ def main(argv=None):
 
     from .device import resolve_device
     from .pathconf import PathConfig
-    from .training.attention import check_ported, not_ported
 
     resolve_device(args.device)  # no card and no --device cpu: raise now
     if not os.path.exists(PathConfig.vocab_file):
         raise SystemError(
             'Must run "python -m icd_tpu_torch.init --vocab True" before '
             'training.')
-    if args.model == "baseline":
-        raise not_ported("--model baseline", "baseline training and "
-                         "--int8_encoder")
-    check_ported(args)
     if args.use_glove:
         if not os.path.exists(PathConfig.glove_vectors):
             raise SystemError(
@@ -118,7 +123,17 @@ def main(argv=None):
         if args.embed_size != 300:
             raise ValueError(
                 "Expected embedding size of 300 for glove vectors.")
-    if args.model == "attention":
+    if args.use_bert:
+        if args.model != "attention":
+            raise ValueError("BERT is only used for attention model.")
+        if args.embed_size != 768:
+            raise ValueError("Expected embedding size of 768 for BERT.")
+    if args.model == "baseline":
+        print("Training baseline model...")
+        from .training.baseline import train
+
+        train(args, device=args.device)
+    elif args.model == "attention":
         print("Training attention model...")
         from .training.attention import train
 

@@ -13,13 +13,16 @@ Faithfully reproduced quirks, as in the JAX package:
    tokens (attention.py:543-553); references are built from targets
    (captions[1:]) duplicated per target position (attention.py:535-541)
 
-The encoder is frozen on this path (its parameters carry
-``requires_grad=False`` and its forward runs under ``torch.no_grad()``);
-its train-mode BN statistics are written back after each step. The
-decoder trains with Adam over value-clipped gradients, its embedding
-table frozen unless ``--fine_tune_embedding``. No kernel of
-``ops/`` runs here: the teacher-forced forward is plain PyTorch under
-autograd, as the JAX scan is plain XLA.
+The encoder is frozen on this path: its train-mode BN statistics are
+written back after each step, except over the int8 trunk of
+``--int8_encoder``, whose statistics stay as ``prepare_int8_encoder``
+warmed them. The decoder trains with Adam over value-clipped gradients,
+its embedding table frozen unless ``--fine_tune_embedding``; under
+``--amp`` it computes in bf16 on bf16 copies of its f32 parameters, and
+its scores are rounded to bf16 before the softmax as JAX's
+``soft_attention`` rounds them. No kernel of ``ops/`` runs here: the
+teacher-forced forward is plain PyTorch under autograd, as the JAX scan
+is plain XLA.
 """
 
 import os
@@ -28,10 +31,8 @@ import time
 import numpy as np
 import torch
 
-from ..checkpoint import load_checkpoint, save_checkpoint, unpack_checkpoint
 from ..data.dataset import COCODataset
-from ..data.pipeline import (DataLoader, eval_workers, host_prefetch,
-                             to_device)
+from ..data.pipeline import DataLoader, eval_workers, to_device
 from ..device import resolve_device, use_exact_f32
 from ..metric import AccumulatingMetric, get_eval_score, probe_meteor
 from ..models.attention import (AttentionDecoderParams,
@@ -39,36 +40,16 @@ from ..models.attention import (AttentionDecoderParams,
                                 init_attention_decoder,
                                 load_pretrained_embeddings)
 from ..models.encoder import (encoder_attention_forward,
-                              init_encoder_attention, trainable_mask)
+                              encoder_attention_forward_int8,
+                              init_encoder_attention)
 from ..models.resnet import merge_bn_stats
-from ..params import (adam_state_from_jax, adam_state_to_jax,
-                      decoder_from_jax, decoder_to_jax, encoder_from_jax,
-                      encoder_to_jax)
+from ..params import decoder_from_jax, encoder_from_jax
 from ..pathconf import _root
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
-from .common import (LossDrain, clip_gradients, cross_entropy,
-                     doubly_stochastic_regularizer, make_optimizer,
-                     token_nll)
-
-
-def not_ported(what, item):
-    """The error for an option the port does not have yet, naming its
-    item in ROADMAP.md's Queue 1."""
-    return NotImplementedError(
-        "{} is not ported to icd_tpu_torch yet (ROADMAP.md, Queue 1: "
-        "{})".format(what, item))
-
-
-def check_ported(args):
-    """Raise for the train flags the port does not run yet, rather than
-    silently training something else."""
-    if getattr(args, "use_bert", False):
-        raise not_ported("--use_bert", "BERT")
-    if getattr(args, "amp", False):
-        raise not_ported("--amp", "AMP")
-    if getattr(args, "int8_encoder", False):
-        raise not_ported("--int8_encoder", "baseline training and "
-                         "--int8_encoder")
+from .common import (cast_floating, check_ported, clip_gradients,
+                     cross_entropy, doubly_stochastic_regularizer,
+                     eval_batches, make_adam, not_ported, resume_or_build,
+                     token_nll, train_epochs, train_precision)
 
 
 def build_attention(args, vocab, generator, device=None):
@@ -95,45 +76,26 @@ def build_attention(args, vocab, generator, device=None):
     return encoder, decoder
 
 
-def trainable_parameters(encoder, decoder, fine_tune_embedding=False):
-    """Mark what trains and return (encoder params, decoder params).
-
-    The attention encoder has no head and its backbone is frozen
-    (attention.py:183-189); the decoder trains whole, its embedding
-    table only with ``fine_tune_embedding``. The rest is set
-    ``requires_grad=False``, so autograd never builds its backward.
-    """
-    mask = trainable_mask(encoder)
-    enc = []
-    for name, p in encoder.named_parameters():
-        p.requires_grad_(mask[name])
-        if mask[name]:
-            enc.append(p)
-    dec = []
-    for name, p in decoder.named_parameters():
-        on = fine_tune_embedding or not name.startswith("embedding.")
-        p.requires_grad_(on)
-        if on:
-            dec.append(p)
-    return enc, dec
-
-
 def decoder_loss(decoder, grid, captions, decode_lengths, alpha_c,
-                 generator=None, dropout_rate=0.0):
+                 generator=None, dropout_rate=0.0, compute_dtype=None):
     """The train loss of the teacher-forced decoder on ``grid``
     (attention.py:100-117), in f32: the CE over the decode window (a
     masked mean: pack_padded over the uniform decode lengths) plus
-    ``alpha_c``'s doubly-stochastic term."""
+    ``alpha_c``'s doubly-stochastic term. With ``compute_dtype`` the
+    decoder runs on copies of its parameters in that dtype, on the grid
+    cast to it (``cast_floating``)."""
     captions = captions.long()
-    scores, alphas = attention_decoder_forward(
-        decoder, grid, captions, decode_lengths, generator=generator,
-        dropout_rate=dropout_rate)
+    if compute_dtype is not None:
+        grid = grid.to(compute_dtype)
+    scores, alphas = cast_floating(
+        attention_decoder_forward, decoder, compute_dtype, grid, captions,
+        decode_lengths, generator, dropout_rate)
     return (cross_entropy(scores, captions[:, 1:], decode_lengths)
             + doubly_stochastic_regularizer(alphas.float(), alpha_c))
 
 
 def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
-                    grad_clip=None):
+                    grad_clip=None, compute_dtype=None, qresnet=None):
     """The train step for the attention model (attention.py:72).
 
     ``step(imgs, captions, decode_lengths, generator)`` runs the frozen
@@ -142,61 +104,46 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
     (CE over the decode window plus ``alpha_c``'s doubly-stochastic
     term, in f32), the backward, clipping and the Adam step. It returns
     the loss as a 0-d tensor on the device, not synchronised.
+
+    ``compute_dtype`` (bf16 with --amp) runs the trunk and the decoder in
+    that dtype over f32 masters. ``qresnet`` (--int8_encoder) takes the
+    grid from the int8 trunk at ``compute_dtype`` (f32 when None); BN
+    statistics then do not update.
     """
 
     def step(imgs, captions, decode_lengths, generator=None):
+        new_stats = None
         with torch.no_grad():
-            grid, new_stats = encoder_attention_forward(encoder, imgs,
-                                                        train=True)
+            if qresnet is None:
+                grid, new_stats = encoder_attention_forward(
+                    encoder, imgs, compute_dtype=compute_dtype, train=True)
+            else:
+                grid = encoder_attention_forward_int8(
+                    qresnet, imgs, compute_dtype or torch.float32)
         loss = decoder_loss(decoder, grid, captions, decode_lengths,
-                            alpha_c, generator, dropout_rate)
+                            alpha_c, generator, dropout_rate, compute_dtype)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         clip_gradients(optimizer, grad_clip)
         optimizer.step()
-        merge_bn_stats(new_stats)
+        if new_stats is not None:
+            merge_bn_stats(new_stats)
         return loss.detach()
 
     return step
 
 
-def train_epoch(step, batches, device, generator=None, epoch=0, epochs=1,
-                num_batches=None, print_freq=1):
-    """One epoch of ``step`` over ``batches`` (attention.py:243-310).
-
-    ``batches`` is any iterable of dicts holding numpy ``imgs``
-    (B, H, W, 3) uint8, ``captions`` (B, T) and ``padded_lengths`` (B,):
-    the ``DataLoader``'s batches, or batches made in memory. Images go to
-    the card from pinned memory without blocking the host. Losses are
-    fetched 16 at a time (``LossDrain``) and printed as the JAX driver
-    prints them. Returns the per-batch losses.
-    """
-    if num_batches is None:
-        num_batches = len(batches)
-    batch_losses = []
-    accum_loss = AccumulatingMetric()
-    accum_time = AccumulatingMetric()
-
-    def finish(loss_val, batch_idx, dt):
-        batch_losses.append(loss_val)
-        accum_loss.update(loss_val)
-        accum_time.update(dt)
-        if batch_idx % print_freq == 0:
-            print("Epoch {}/{}, Batch {}/{}, Loss {:.4f}, Time: {:.4f}".format(
-                epoch + 1, epochs, batch_idx + 1, num_batches,
-                accum_loss.avg(), accum_time.val))
-
-    drain = LossDrain(finish)
-    for batch_idx, batch in enumerate(batches):
-        # Reference quirk: lengths measured after padding -> a uniform
-        # decode window covering pads (attention.py:311-313).
+def batch_step(step, device, generator=None):
+    """``step`` as ``common.train_epoch`` calls it, on a loader batch:
+    the arrays go to ``device``, and the decode lengths are the padded
+    length - 1 (reference quirk: lengths measured after padding, a
+    uniform decode window covering pads, attention.py:311-313)."""
+    def run(batch):
         decode_lengths = np.asarray(batch["padded_lengths"]) - 1
-        loss = step(to_device(batch["imgs"], device),
+        return step(to_device(batch["imgs"], device),
                     to_device(batch["captions"], device),
                     to_device(decode_lengths, device), generator)
-        drain.push(loss, batch_idx)
-    drain.flush()
-    return batch_losses
+    return run
 
 
 def train(args, device=None):
@@ -210,39 +157,16 @@ def train(args, device=None):
     loader = DataLoader(
         dataset, batch_size=args.batch_size, shuffle=True,
         num_workers=args.workers, pad_idx=vocab(PAD_TOKEN))
-
-    if args.checkpoint is None:
-        encoder, decoder = build_attention(
-            args, vocab, torch.Generator().manual_seed(0), device)
-        start_epoch, metrics, opt_state = 0, {}, None
-    else:
-        (start_epoch, enc_tree, dec_tree, _enc_opt, opt_state,
-         metrics) = unpack_checkpoint(load_checkpoint(args))
-        encoder = encoder_from_jax(enc_tree).to(device)
-        decoder = decoder_from_jax(dec_tree).to(device)
-        start_epoch += 1
-
-    enc_params, dec_params = trainable_parameters(
-        encoder, decoder, args.fine_tune_embedding)
-    optimizer = make_optimizer(enc_params, dec_params, args.encoder_lr,
-                               args.decoder_lr)
-    if opt_state is not None:
-        optimizer.state.update(adam_state_from_jax(opt_state, decoder))
+    start_epoch, encoder, decoder, opt_state, metrics = resume_or_build(
+        args, build_attention, vocab, device)
+    optimizer = make_adam(args, encoder, decoder, opt_state)
+    compute_dtype, qresnet = train_precision(args, encoder.resnet, loader)
     step = make_train_step(encoder, decoder, optimizer, args.alpha_c,
-                           args.decoder_dropout, args.grad_clip)
+                           args.decoder_dropout, args.grad_clip,
+                           compute_dtype, qresnet)
     generator = torch.Generator(device).manual_seed(1)
-
-    epoch_losses = metrics.get("epoch_losses", [])
-    for epoch in range(start_epoch, args.epochs):
-        batch_losses = train_epoch(
-            step, host_prefetch(iter(loader), size=2), device, generator,
-            epoch, args.epochs, len(loader), args.print_freq)
-        epoch_losses.append(batch_losses)
-        metrics = {"epoch_losses": epoch_losses}
-        save_checkpoint(args, epoch, encoder_to_jax(encoder),
-                        decoder_to_jax(decoder), None,
-                        adam_state_to_jax(optimizer, decoder), metrics)
-
+    train_epochs(args, loader, batch_step(step, device, generator), encoder,
+                 decoder, optimizer, start_epoch, metrics)
     print("Model {} finished training for {} epochs.".format(
         args.model_name, args.epochs))
     return encoder, decoder
@@ -323,17 +247,9 @@ def evaluate(args, encoder, decoder, batch_size=64, use_bert=False,
     start_time = time.time()
     print("Started validation...")
 
-    def staged():
-        # Producer thread: ship the inputs while the card computes the
-        # previous batch. Batch-1 semantics: each sample's decode length
-        # is its own caption length - 1.
-        for batch in iter(loader):
-            yield (to_device(batch["imgs"], device),
-                   to_device(batch["captions"], device),
-                   to_device(batch["caption_lengths"] - 1, device), batch)
-
-    def drain(pending, batch_idx):
-        per_sample, preds, batch = pending
+    def drain(per_sample, preds, batch, batch_idx):
+        # Batch-1 semantics: each sample's decode length is its own
+        # caption length - 1.
         lengths = batch["caption_lengths"]
         for loss_val, decode_len in zip(per_sample.tolist(), lengths - 1):
             losses.append(loss_val)
@@ -349,16 +265,7 @@ def evaluate(args, encoder, decoder, batch_size=64, use_bert=False,
             print("Batch {}/{}, Loss {:.4f}".format(
                 batch_idx + 1, num_batches, accum_loss.avg()))
 
-    pending = None
-    for batch_idx, (imgs, captions, dec_lens, batch) in enumerate(
-            host_prefetch(staged(), size=2)):
-        per_sample, preds = step(imgs, captions, dec_lens)
-        if pending is not None:
-            drain(*pending)
-        pending = ((per_sample, preds, batch), batch_idx)
-    if pending is not None:
-        drain(*pending)
-
+    eval_batches(loader, step, device, drain, length_offset=1)
     metrics = get_eval_score(references, hypotheses)
     metrics["losses"] = losses
     print("Checkpoint {} finished evaluation in {:.4f} seconds.".format(

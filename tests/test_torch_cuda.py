@@ -22,12 +22,15 @@ and K1's likewise: the span from its first block's start to its last
 block's end. The int8 products (``torch._int_mm``, cuBLASLt) sum
 integers: card and CPU give the same int32 sums, and the int8 encoder
 the same grid. Greedy captioners in f32 with TF32 off give the same
-tokens on card and CPU. Training: one f32 step agrees on card and CPU
-(the limits are at the test), and the train and eval drivers run on the
-card by default and launch neither K1 nor K2.
+tokens on card and CPU. Training: one f32 step of each model family agrees on card and CPU,
+and so do one --amp step and one --int8_encoder step of each (the limits
+are at the tests); the train and eval drivers of both families, with
+--amp and --int8_encoder, run on the card by default and launch neither
+K1 nor K2.
 """
 
 import contextlib
+import copy
 import functools
 import math
 
@@ -669,14 +672,167 @@ def test_train_and_eval_drivers_run_on_the_card(card, tmp_path,
     assert (fused_attention.launches, beam_search_fused.launches) == (0, 0)
 
 
+def _small_baseline_problem(seed=6):
+    """A (1, 1, 1, 1) ResNet of widths (4, 8, 8, 16) with a Linear(64, 16)
+    head, a V = 60, E = 16, H = 48 baseline decoder, 4 images, captions
+    of length 12 (<pad> 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    resnet = init_resnet(gen, (1, 1, 1, 1), (4, 8, 8, 16), device="cpu")
+    embed = torch.nn.Linear(64, 16)
+    with torch.no_grad():
+        for p in embed.parameters():
+            p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / 8)
+    params = BaselineDecoderParams()
+    params.vocab_size, params.embed_size, params.hidden_size = 60, 16, 48
+    decoder = init_baseline_decoder(gen, params, device="cpu")
+    imgs = torch.randint(0, 256, (4, 64, 64, 3), generator=gen,
+                         dtype=torch.uint8)
+    captions = seeded_captions(gen, 4, 12, 60, 57, 58, min_words=4)
+    return Encoder(resnet, embed), decoder, imgs, captions
+
+
+def test_baseline_train_step_on_card_matches_cpu(card):
+    """One f32 baseline step with TF32 off, clipping biting, the head
+    trained (--fine_tune_encoder): the features differ by the
+    convolutions' sums in other orders and the LSTM has no kink, so the
+    loss within rtol 1e-5, BN statistics within 1e-5, gradients and
+    Adam's moments within 1e-3 of each tensor's largest value, at most 1
+    % of the updated parameters more than lr / 100 apart."""
+    encoder, decoder, imgs, captions = _small_baseline_problem()
+    lr = 1e-3
+    card_run, cpu_run = (train_step_record(encoder, decoder, imgs, captions,
+                                           None, dev, lr=lr, grad_clip=0.05)
+                         for dev in (card, "cpu"))
+    assert {"embed.weight", "embed.bias"} <= set(card_run["grads"])
+    errs = train_step_errors(card_run, cpu_run, lr)
+    assert errs["loss"] <= 1e-5 and errs["score_bias_grad"] == []
+    assert max(errs["bn"].values()) <= 1e-5, errs["bn"]
+    for key in ("grads", "exp_avg", "exp_avg_sq"):
+        assert max(errs[key].values()) <= 1e-3, (key, errs[key])
+    assert errs["step_share_beyond"] <= 1e-2
+
+
+def _problem(family):
+    if family == "baseline":
+        encoder, decoder, imgs, captions = _small_baseline_problem()
+        return encoder, decoder, imgs, captions, None
+    return _small_train_problem()
+
+
+@pytest.mark.parametrize("family", ["baseline", "attention"])
+def test_amp_step_on_card_matches_cpu(card, family):
+    """One --amp step: bf16 roundings land differently on the two
+    devices (cuBLAS and cuDNN against the CPU's kernels), so the loss
+    within 1e-2, BN statistics (f32) within 2e-2 of their largest value,
+    at most 10 % of the updated parameters more than lr / 100 apart
+    (where bf16 noise flips a gradient's sign); on the card the masters
+    and Adam's moments stay f32 and the frozen weights come back
+    bit-identical."""
+    encoder, decoder, imgs, captions, lens = _problem(family)
+    lr = 1e-3
+    card_run, cpu_run = (train_step_record(
+        encoder, decoder, imgs, captions, lens, dev, lr=lr,
+        compute_dtype=torch.bfloat16) for dev in (card, "cpu"))
+    errs = train_step_errors(card_run, cpu_run, lr)
+    assert errs["loss"] <= 1e-2 and errs["step_share_beyond"] <= 0.1, errs
+    assert max(errs["bn"].values()) <= 2e-2, errs["bn"]
+    for key in ("params", "exp_avg", "exp_avg_sq", "bn"):
+        assert all(t.dtype == torch.float32
+                   for t in card_run[key].values()), key
+    start = dict(encoder.named_parameters(), **dict(
+        decoder.named_parameters()))
+    for name, value in card_run["frozen"].items():
+        assert torch.equal(value, start[name].detach()), name
+
+
+@pytest.mark.parametrize("family", ["baseline", "attention"])
+def test_int8_step_on_card_matches_cpu(card, family):
+    """One --int8_encoder step (f32) from the same int8 tree: the int32
+    sums and the f32 epilogue are the same on both devices, so the loss
+    within rtol 1e-5, and BN statistics unchanged by the step on either
+    device."""
+    from icd_tpu_torch.models.resnet_int8 import quantize_resnet
+
+    encoder, decoder, imgs, captions, lens = _problem(family)
+    qresnet = quantize_resnet(encoder.resnet, calibrate_act_maxes(
+        encoder.resnet, imgs, torch.float32))
+    card_run, cpu_run = (train_step_record(
+        encoder, decoder, imgs, captions, lens, dev, lr=1e-3,
+        qresnet=qresnet) for dev in (card, "cpu"))
+    errs = train_step_errors(card_run, cpu_run, 1e-3)
+    assert errs["loss"] <= 1e-5, errs["loss"]
+    start = dict(encoder.named_buffers())
+    for run in (card_run, cpu_run):
+        for name, value in run["bn"].items():
+            assert torch.equal(value, start[name]), name
+
+
+def test_baseline_and_precision_drivers_run_on_the_card(card, tmp_path,
+                                                       monkeypatch):
+    """training.baseline.train (two epochs, the head trained) and
+    evaluate, and both families' train with --amp and --int8_encoder,
+    with no device given, run on the card over in-memory items and
+    launch neither K1 nor K2."""
+    import argparse
+
+    import icd_tpu_torch.training.attention as ta
+    import icd_tpu_torch.training.baseline as tb
+    from icd_tpu_torch.checkpoint import load_checkpoint
+
+    monkeypatch.setenv("ICD_TPU_ROOT", str(tmp_path))
+    monkeypatch.setenv("ICD_TPU_ALLOW_NO_METEOR", "1")
+    small = _small_baseline_problem()[0]
+    for module in (ta, tb):
+        monkeypatch.setattr(module, "COCODataset", _MemoryCaptions)
+    monkeypatch.setattr(tb, "init_encoder", lambda gen, size, device:
+                        copy.deepcopy(small).to(device))
+    monkeypatch.setattr(ta, "init_encoder_attention", lambda gen, device:
+                        EncoderAttention(copy.deepcopy(small.resnet)
+                                         .to(device)))
+    monkeypatch.setattr(ta, "init_attention_decoder", functools.partial(
+        init_attention_decoder, encoder_dim=64))
+
+    def args(**kw):
+        return argparse.Namespace(**dict(dict(
+            model_name="card_b", model="baseline", attention_dim=32,
+            decoder_dim=48, decoder_dropout=0.5, embed_size=16, epochs=1,
+            batch_size=4, workers=0, encoder_lr=1e-3, decoder_lr=1e-3,
+            grad_clip=5.0, alpha_c=1.0, fine_tune_encoder=False,
+            fine_tune_embedding=False, checkpoint=None, print_freq=1,
+            use_glove=False, max_caption_length=-1, use_bert=False,
+            amp=False, int8_encoder=False), **kw))
+
+    fused_attention.launches = beam_search_fused.launches = 0
+    encoder, decoder = tb.train(args(epochs=2, fine_tune_encoder=True))
+    assert next(decoder.parameters()).device.type == "cuda"
+    assert next(encoder.parameters()).device.type == "cuda"
+    chkpt = load_checkpoint(name="card_b_1.ckpt")
+    assert int(chkpt["decoder_optimizer"]["count"]) == 4
+    assert set(chkpt["decoder_optimizer"]["mu"]) == {"encoder", "decoder"}
+    metrics = tb.evaluate(args(), chkpt["encoder"], chkpt["decoder"])
+    assert len(metrics["losses"]) == 6
+    assert all(math.isfinite(v) for v in metrics["losses"])
+    for module, name in ((tb, "card_bp"), (ta, "card_ap")):
+        module.train(args(model_name=name, amp=True, int8_encoder=True,
+                          model="attention" if module is ta else "baseline"))
+        losses = load_checkpoint(name=name + "_0.ckpt")["metrics"][
+            "epoch_losses"][0]
+        assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert (fused_attention.launches, beam_search_fused.launches) == (0, 0)
+
+
 _NO_CARD = """
 import sys
 from icd_tpu_torch import eval as port_eval, train as port_train
 from icd_tpu_torch.device import resolve_device
-from icd_tpu_torch.training.attention import evaluate, train
+from icd_tpu_torch.training import attention, baseline
 calls = [lambda: port_train.main(["x", "--model", "attention"]),
+         lambda: port_train.main(["x", "--model", "baseline"]),
          lambda: port_eval.main(["x.ckpt", "--model_type", "attention"]),
-         lambda: train(None), lambda: evaluate(None, None, None)]
+         lambda: port_eval.main(["x.ckpt", "--model_type", "baseline"])]
+for module in (attention, baseline):
+    calls += [lambda m=module: m.train(None),
+              lambda m=module: m.evaluate(None, None, None)]
 for call in calls:
     try:
         call()

@@ -53,12 +53,11 @@ from icd_tpu_torch.params import (adam_state_from_jax, adam_state_to_jax,
                                   decoder_from_jax, decoder_to_jax,
                                   encoder_from_jax, encoder_to_jax,
                                   resnet_from_jax)
-from icd_tpu_torch.training.attention import (make_eval_step,
-                                              make_train_step,
-                                              trainable_parameters)
+from icd_tpu_torch.training.attention import make_eval_step, make_train_step
 from icd_tpu_torch.training.common import (cross_entropy,
                                            doubly_stochastic_regularizer,
-                                           make_optimizer)
+                                           make_optimizer,
+                                           trainable_parameters)
 from helpers import make_train_args
 from test_torch_params import small_resnet_tree
 from test_torch_qlinear import np_decoder_tree

@@ -192,18 +192,7 @@ def test_init_vocab_matches_icd_tpu(coco_root, tmp_path, monkeypatch,
     assert got.w2i == want.w2i and got.i2w == want.i2w
 
 
-@pytest.mark.parametrize("argv", [
-    ["--model", "baseline"],
-    ["--model", "attention", "--amp", "True"],
-    ["--model", "attention", "--int8_encoder", "True"],
-    ["--model", "attention", "--use_bert", "True", "--embed_size", "768"],
-])
-def test_unported_train_options_raise(use_coco_root, argv):
+def test_unported_train_options_raise(use_coco_root):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        port_train.main(["tcli_no"] + argv + ["--device", "cpu"])
-
-
-def test_eval_baseline_raises(use_coco_root):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        port_eval.main(["x.ckpt", "--model_type", "baseline", "--device",
-                        "cpu"])
+        port_train.main(["tcli_no", "--model", "attention", "--use_bert",
+                         "True", "--embed_size", "768", "--device", "cpu"])

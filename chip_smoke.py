@@ -2,8 +2,10 @@
 """Drive icd_tpu_torch's paths on one CUDA card: beam search (float and
 int8 encoder) and greedy decoding (float and W8A8 decoder) of the
 attention model, greedy decoding of the baseline model, the bench
-(``python -m icd_tpu_torch.bench``), and training and teacher-forced
-evaluation of the attention model.
+(``python -m icd_tpu_torch.bench``), training and teacher-forced
+evaluation of both models (f32, --amp, --int8_encoder), and the
+attention model's --use_bert training and eval with bert-base caption
+embeddings.
 
     python3 chip_smoke.py
 
@@ -163,9 +165,44 @@ Phases, one line of output each:
                must fail the loss limit), and the scorers (METEOR by its
                pure-Python backend) over the result on the host.
 
+21. train_baseline_step_f32, train_baseline, train_amp_step,
+    train_int8_step, eval_baseline_f32: the baseline model's step card
+    vs CPU, its training bench rows (f32, amp, amp + int8), the --amp and
+    --int8_encoder steps of both families, the baseline eval step;
+22. bert_f32   bert-base at its published geometry (12 layers, hidden
+               768, 12 heads, FFN 3,072, 30,522 pieces, 512 positions),
+               seeded weights, f32, TF32 off, over 32 seeded captions of
+               8-25 words (bert_vocab: a vocab.txt made from the smoke's
+               vocabulary, filled to 30,522): the caption embedder's device
+               path on the card against the CPU, padded rows and rows cut
+               to their lengths, within 1e-5 of the largest value (TF32
+               must exceed it); the forward's ms (events, median of 10)
+               beside its bound, the host tokenization's ms with a cold
+               and a warm word memo, peak memory;
+23. bert_int8  the W8A8 BERT on the card and on the CPU with the CPU's
+               int8 inputs shared (testing.SharedQuantization): the int32
+               sums of every product of every layer equal, every
+               product's float input and the output within 1e-5 (TF32,
+               its operands rounded by hand, must exceed it); free-running
+               the output error printed, and the CPU's W8A8 within 5 % of
+               its f32 forward; its ms beside the f32 forward's;
+24. train_bert_step_f32  one --use_bert step (E = 768 decoder, batch 4)
+               card vs CPU from the same BERT embeddings, with
+               train_step_f32's limits but the own-grid gradients' (0.1),
+               the one-grid gradients taken with the CPU's relu branches
+               (testing.ReluBranches) within 1e-4; the decoder's table
+               bit-identical; TF32 must fail every limit;
+25. train_bert 20 --use_bert steps at the training bench's shapes, BERT's
+               embeddings made on the card inside each step: step ms,
+               images/s, BERT's share of the step, idle share, peak
+               memory; 30 steps on one batch must take the loss below 0.8x;
+26. eval_bert_f32  the eval step on embeddings of the captions cut to
+               their lengths over 130 items: losses within 1e-5 of the
+               CPU's (TF32 beyond), predictions equal.
+
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must have launched its kernels, and the baseline,
-train and eval paths, which have none, none.
+train, eval and BERT paths, which have none, none.
 
 Then one JSON line of every kernel's numbers (K2's with its per-phase
 ms), the card's name and power limit as nvidia-smi gives them, and last
@@ -1476,7 +1513,7 @@ RESNET101_GFLOP = 15.6  # forward per 224x224 image (tools/bench_train.py:30)
 F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
 
-def decoder_train_gflop(b, t):
+def decoder_train_gflop(b, t, embed=EMBED):
     """Model GFLOP of one attention-decoder forward + backward, counted as
     tools/bench_train.py:40-70 counts them: 3x the forward's products
     (the hoisted enc_att, init h and c, per decode step att_dec, scores,
@@ -1486,7 +1523,7 @@ def decoder_train_gflop(b, t):
            + 2 * 2 * b * ENC_DIM * DEC_DIM
            + td * (2 * b * DEC_DIM * ATT_DIM + 2 * b * PIX * ATT_DIM
                    + 2 * b * PIX * ENC_DIM + 2 * b * DEC_DIM * ENC_DIM
-                   + 2 * b * (EMBED + ENC_DIM + DEC_DIM) * 4 * DEC_DIM)
+                   + 2 * b * (embed + ENC_DIM + DEC_DIM) * 4 * DEC_DIM)
            + 2 * b * td * DEC_DIM * VOCAB)
     return 3.0 * fwd / 1e9
 
@@ -2173,6 +2210,526 @@ def phase_eval_baseline_f32(trained, gen, results):
           "baseline eval scores", scores)
 
 
+BERT_CAPTIONS, BERT_DIM = 32, 768
+
+
+def bert_vocab():
+    """The smoke's caption vocabulary (V = 10,000: <pad> 0, 9,996 seeded
+    words of 2 to 10 letters, <start>, <end>, <unk>) and a bert-base
+    vocab.txt made from it as tools/make_tiny_bert.py makes one (the
+    special pieces, < and >, then the words lower-cased without < and
+    >), except that every other word of more than 3 letters is split into
+    its first 3 letters and a ## continuation, so that WordPiece joins
+    pieces; filled with [unused] entries to bert-base's 30,522. Returns
+    (vocab, path)."""
+    import numpy as np
+
+    from icd_tpu_torch.models.bert import BERT_BASE
+    from icd_tpu_torch.vocabulary import (END_TOKEN, PAD_TOKEN, START_TOKEN,
+                                          UNK_TOKEN, Vocabulary)
+
+    rng = np.random.default_rng(17)
+    words = []
+    seen = set()
+    while len(words) < VOCAB - 4:
+        n = int(rng.integers(2, 11))
+        word = "".join(chr(97 + c) for c in rng.integers(0, 26, n))
+        if word not in seen:
+            seen.add(word)
+            words.append(word)
+    vocab = Vocabulary()
+    for word in [PAD_TOKEN] + words + [START_TOKEN, END_TOKEN, UNK_TOKEN]:
+        vocab.add_word(word)
+    check(vocab(START_TOKEN) == START_ID and vocab(END_TOKEN) == END_ID,
+          "smoke vocabulary ids")
+    pieces = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "<", ">",
+              "start", "end", "pad", "unk"]
+    for i, word in enumerate(words):
+        pieces += ([word[:3], "##" + word[3:]] if i % 2 and len(word) > 3
+                   else [word])
+    pieces = list(dict.fromkeys(pieces))
+    pieces += ["[unused{}]".format(i)
+               for i in range(BERT_BASE["vocab_size"] - len(pieces))]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, "bert_vocab.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(pieces))
+    return vocab, path
+
+
+def bert_forward_gflop(mask, layers=12, hidden=768, inter=3072):
+    """Model GFLOP that one bert-base forward needs over the rows of
+    ``mask`` (B, L): per valid piece and layer the q, k, v, o and FFN
+    products, and per row of n valid pieces the attention's two (n, n)
+    products; padded pieces and keys count nothing."""
+    import numpy as np
+
+    n = np.asarray(mask).sum(1).astype(np.float64)
+    per_token = 2 * (4 * hidden * hidden + 2 * hidden * inter)
+    attn = 2 * 2 * hidden
+    return layers * float((n * per_token + n * n * attn).sum()) / 1e9
+
+
+def rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def bert_models(models):
+    """The --use_bert attention model at full width: full_width_models'
+    ResNet-101 and a seeded V=10,000 decoder with A = H = 512 and
+    E = 768 (BERT's width), f32 on the card."""
+    import torch
+
+    from icd_tpu_torch.models.attention import (AttentionDecoderParams,
+                                                init_attention_decoder)
+
+    params = AttentionDecoderParams()
+    params.attention_dim, params.decoder_dim = ATT_DIM, DEC_DIM
+    params.embed_size, params.vocab = BERT_DIM, range(VOCAB)
+    params.use_bert = True
+    decoder = init_attention_decoder(torch.Generator().manual_seed(23),
+                                     params, device="cuda")
+    return models[0], decoder
+
+
+def phase_bert_f32(gen, results):
+    """bert-base at its published geometry (12 layers, hidden 768, 12
+    heads, FFN 3,072, 30,522 pieces, 512 positions) with weights from a
+    seeded generator, f32, TF32 off: the embedder's device path on the
+    card against the same embedder on the CPU over 32 seeded captions of
+    8 to 25 words, padded (the train form) and cut to their lengths (the
+    eval form); the card's run again with TF32 on must fail the limit.
+    Times the forward and the host's tokenization. Returns (bert on the
+    CPU, tokenizer, vocabulary)."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.k1_bench import (F32_FLOP_PER_S, HBM_BYTES_PER_S,
+                                        time_ms)
+    from icd_tpu_torch.models.bert import (BERT_BASE, bert_aligned_forward,
+                                           init_bert)
+    from icd_tpu_torch.models.bert_embed import (BertCaptionEmbedder,
+                                                 caption_keys)
+    from icd_tpu_torch.models.bert_tokenize import BertTokenizer
+    from icd_tpu_torch.testing import f32_products, seeded_captions
+
+    vocab, path = bert_vocab()
+    tokenizer = BertTokenizer(path)
+    t0 = time.perf_counter()
+    bert = init_bert(torch.Generator().manual_seed(21), BERT_BASE, "cpu")
+    init_s = time.perf_counter() - t0
+    captions = seeded_captions(gen, BERT_CAPTIONS, 27, VOCAB, START_ID,
+                               END_ID, min_words=8).numpy()
+    lengths = (captions != 0).sum(1)
+    f32_products()
+    card = BertCaptionEmbedder(vocab, model=copy.deepcopy(bert),
+                               tokenizer=tokenizer, device="cuda")
+    cpu = BertCaptionEmbedder(vocab, model=bert, tokenizer=tokenizer,
+                              device="cpu")
+    keys = caption_keys(captions)
+    t0 = time.perf_counter()
+    card.piece_arrays(captions, keys)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    card._cache.clear()
+    t0 = time.perf_counter()
+    ids, mask, seg, n_words = card.piece_arrays(captions, keys)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    counters = zero_counters()
+    got = card(captions).cpu()
+    got_len = card(captions, lengths=lengths).cpu()
+    torch.cuda.synchronize()
+    check_no_kernel(counters, "bert_f32", results)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    want = cpu(captions)
+    want_len = cpu(captions, lengths=lengths)
+    cpu_s = time.perf_counter() - t0
+    f32_products(tf32=True)
+    fault = card(captions).cpu()
+    f32_products()
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+           for a in (ids, mask, seg)]
+    model = card.bert.bert
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: bert_aligned_forward(model, *dev,
+                                                          n_words),
+                             iters=10, warmup=2)
+    gflop = bert_forward_gflop(mask)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    bound_ms = max(gflop * 1e9 / F32_FLOP_PER_S,
+                   weight_bytes / HBM_BYTES_PER_S) * 1e3
+    errs = dict(aligned=rel_err(got, want), lengths=rel_err(got_len,
+                                                            want_len))
+    tf32_err = rel_err(fault, want)
+    # 12 layers of f32 sums in other orders: 1.0e-6 to 1.2e-6 of the
+    # largest value on the H100 (PERF.md §6); TF32 4.9e-4 to 5.3e-4.
+    limit = 1e-5
+    log("bert_f32", captions=BERT_CAPTIONS, pieces=list(ids.shape),
+        pieces_valid=int(mask.sum()), words=n_words,
+        init_cpu_s=init_s, forward_ms=forward_ms, model_gflop=gflop,
+        bound_ms=bound_ms, tokenize_cold_ms=cold_ms, tokenize_warm_ms=warm_ms,
+        peak_memory_bytes=peak, resident_before_bytes=resident,
+        cpu_seconds=cpu_s, rel_err_vs_cpu=errs, limit=limit,
+        tf32_rel_err_vs_cpu=tf32_err, k1_launches=0, k2_launches=0)
+    check(got.shape == (BERT_CAPTIONS, 28, BERT_DIM)
+          and bool(torch.isfinite(got).all()), "bert shapes", got.shape)
+    for row, n in zip(got_len, lengths):
+        check(not row[n + 1:].any(), "rows past a caption are zero")
+    check(max(errs.values()) <= limit < tf32_err,
+          "bert card vs CPU, TF32", errs, tf32_err)
+    return bert, tokenizer, vocab
+
+
+def phase_bert_int8(bert, tokenizer, vocab, gen, results):
+    """The W8A8 BERT (ops/qlinear.py products; attention products, tables
+    and LayerNorms f32) on the card and on the CPU, 8 captions. With the
+    CPU's int8 inputs shared (testing.SharedQuantization): the int32 sums
+    of every product of every layer equal, each product's float input
+    and the output within the limit of the CPU's; the card's run again
+    with TF32 on and the attention's operands rounded to TF32 must fail
+    it. Free-running, the output error card vs
+    CPU is printed, and the CPU's W8A8 output is held to the quality
+    bound against its f32 forward. Its forward ms beside the f32 one's on
+    the smoke's 32 captions."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.models.bert import (bert_encoder_forward,
+                                           quantize_bert)
+    from icd_tpu_torch.models.bert_embed import (BertCaptionEmbedder,
+                                                 caption_keys)
+    from icd_tpu_torch.testing import (SharedQuantization, f32_products,
+                                       seeded_captions, tf32_operands)
+
+    f32_products()
+    captions = seeded_captions(gen, BERT_CAPTIONS, 27, VOCAB, START_ID,
+                               END_ID, min_words=8).numpy()
+    card = BertCaptionEmbedder(vocab, model=copy.deepcopy(bert),
+                               tokenizer=tokenizer, device="cuda", int8=True)
+    ids, mask, seg, n_words = card.piece_arrays(captions,
+                                                caption_keys(captions))
+    qcpu = quantize_bert(bert)
+    qcard = card.bert.bert
+    few = [torch.from_numpy(np.ascontiguousarray(a[:8])).long()
+           for a in (ids, mask)]
+    valid = few[1].bool()
+    shared = SharedQuantization()
+    with torch.no_grad():
+        counters = zero_counters()
+        q_card = bert_encoder_forward(qcard, *(t.cuda() for t in few)).cpu()
+        torch.cuda.synchronize()
+        check_no_kernel(counters, "bert_int8", results)
+        with shared.applied():
+            q_cpu = bert_encoder_forward(qcpu, *few)
+        readings = {}
+        for run in ("f32", "tf32", "tf32_operands"):
+            f32_products(tf32=run != "f32")
+            with shared.applied(), (tf32_operands() if run == "tf32_operands"
+                                    else contextlib.nullcontext()):
+                out = bert_encoder_forward(qcard,
+                                           *(t.cuda() for t in few)).cpu()
+            output_err = rel_err(out[valid], q_cpu[valid])
+            readings[run] = dict(
+                sums_equal=shared.sums_equal, input_err=shared.input_err,
+                output_err=output_err,
+                float_err=max(shared.input_err, output_err))
+        f32_products()
+        f32_cpu = bert_encoder_forward(bert, *few)
+        free_err = rel_err(q_card[valid], q_cpu[valid])
+        vs_f32 = rel_err(q_cpu[valid], f32_cpu[valid])
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+               for a in (ids, mask)]
+        f32_model = copy.deepcopy(bert).cuda()
+        int8_ms = time_ms(lambda: bert_encoder_forward(qcard, *dev),
+                          iters=10, warmup=2)
+        f32_ms = time_ms(lambda: bert_encoder_forward(f32_model, *dev),
+                         iters=10, warmup=2)
+    del f32_model
+    shared_run, tf32_run = readings["f32"], readings["tf32_operands"]
+    # With the int8 inputs shared, the two forwards differ by their f32
+    # work only (sums in other orders, as bert_f32: ~1e-6 of the largest
+    # value), read at every product's float input and at the output. The
+    # only f32 products left are the attention's, which cuBLAS runs on
+    # TF32 tensor cores in some runs and not in others (the TF32 mode
+    # alone read 1.5e-4 in one run, bit-identical to f32 in another,
+    # PERF.md §6): the control rounds their operands to TF32 itself
+    # (testing.tf32_operands), which shows at the o products' inputs (the
+    # output, past the shared int8 rows, does not see it). Free-running,
+    # an activation that rounds to the other int8 value on the two devices
+    # moves the next product by a quantization step and 12 layers carry it
+    # on (2.1e-2 to 2.3e-2 apart at the output, PERF.md §6): printed, not
+    # gated, since TF32 hides under it. 0.05 is the W8A8 quality bound of
+    # tests/test_bert_jax.py, on the CPU alone.
+    limit, quality = 1e-5, 0.05
+    log("bert_int8", captions=8, timed_captions=BERT_CAPTIONS,
+        products=len(shared.records), shared=shared_run, limit=limit,
+        tf32_mode_shared=readings["tf32"], tf32_operands_shared=tf32_run,
+        free_running_rel_err_vs_cpu=free_err,
+        int8_vs_f32_rel_err=vs_f32, quality_bound=quality,
+        int8_forward_ms=int8_ms, f32_forward_ms=f32_ms, k1_launches=0,
+        k2_launches=0)
+    check(len(shared.records) == 6 * len(qcpu.layers),
+          "bert int8: every product recorded", len(shared.records))
+    check(all(r["sums_equal"] for r in readings.values()),
+          "bert int8: every product's int32 sums card == CPU")
+    check(bool(torch.isfinite(q_card).all()), "bert int8 finite")
+    check(shared_run["float_err"] <= limit < tf32_run["float_err"],
+          "bert int8 products' inputs and output card vs CPU, TF32 operands",
+          shared_run, tf32_run)
+    check(vs_f32 <= quality, "bert int8 against f32", vs_f32, quality)
+
+
+def bert_trainer(models, embedder, decoder_lr):
+    """A fresh copy of the --use_bert attention model and its train step on
+    a batch: BERT's embeddings of the batch's captions made first (on the
+    card, as ``training.attention.train`` makes them), dropout 0.5,
+    grad_clip 5, Adam, the table frozen. Returns (run, encoder,
+    decoder)."""
+    import torch
+
+    from icd_tpu_torch.training.attention import (batch_step,
+                                                  make_train_step,
+                                                  with_bert)
+    from icd_tpu_torch.training.common import (make_optimizer,
+                                               trainable_parameters)
+
+    enc, dec = (copy.deepcopy(m) for m in models)
+    enc_params, dec_params = trainable_parameters(enc, dec)
+    optimizer = make_optimizer(enc_params, dec_params, 1e-4, decoder_lr)
+    step = make_train_step(enc, dec, optimizer, 1.0, 0.5, 5.0)
+    run = batch_step(step, "cuda", torch.Generator("cuda").manual_seed(1))
+    prepare = with_bert(embedder)
+    return (lambda batch: run(prepare(dict(batch)))), enc, dec
+
+
+def phase_train_bert_step_f32(bmodels, bert, tokenizer, vocab, gen,
+                              results):
+    """One f32 --use_bert step (dropout 0, TF32 off) at batch 4, caption
+    length 12, on the card and on the CPU from the same parameters and
+    the same BERT embeddings, with train_step_f32's limits, the one-grid
+    gradients taken with the CPU's relu branches; the decoder's table
+    bit-identical after the step; the card's step again with TF32 on
+    must fail every limit."""
+    import torch
+
+    from icd_tpu_torch.models.bert_embed import BertCaptionEmbedder
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+    from icd_tpu_torch.testing import (SCORE_BIAS, ReluBranches,
+                                       decoder_grads, relative_errors,
+                                       seeded_captions, train_step_errors,
+                                       train_step_record)
+
+    encoder, decoder = bmodels
+    imgs = uint8_images(4, seed=19)
+    captions = seeded_captions(gen, 4, 12, VOCAB, START_ID, END_ID,
+                               min_words=4)
+    lens = torch.full((4,), 11, dtype=torch.int32)
+    emb = BertCaptionEmbedder(vocab, model=bert, tokenizer=tokenizer,
+                              device="cpu")(captions.numpy())
+    lr = 1e-4
+
+    def step(device, tf32=False):
+        return train_step_record(encoder, decoder, imgs, captions, lens,
+                                 device, lr=lr, tf32=tf32, embeddings=emb)
+
+    # The CPU's relu branches, recorded by its one-grid run and taken by
+    # the card's.
+    branches = ReluBranches()
+
+    def same_grid(device, tf32=False):
+        grads = decoder_grads(decoder, grid, captions, lens, device,
+                              tf32=tf32, embeddings=emb, branches=branches)
+        return grads, grads.pop(SCORE_BIAS).abs().max().item()
+
+    with torch.no_grad():
+        grid, _ = encoder_attention_forward(encoder, imgs.to("cuda"),
+                                            train=True)
+    same_cpu, cpu_noise = same_grid("cpu")
+    counters = zero_counters()
+    card = step("cuda")
+    same_card, card_noise = same_grid("cuda")
+    flipped = branches.flipped
+    torch.cuda.synchronize()
+    check_no_kernel(counters, "train_bert_step_f32", results)
+    fault, (fault_same, _) = step("cuda", tf32=True), same_grid("cuda", True)
+    tf32_flipped = branches.flipped
+    cpu = step("cpu")
+
+    def readings(run, same):
+        errs = train_step_errors(run, cpu, lr)
+        errs["grads_same_grid"] = relative_errors(same, same_cpu)
+        worst = {key: max(errs[key].values()) for key in (
+            "grads", "exp_avg", "exp_avg_sq", "bn", "grads_same_grid")}
+        worst.update(loss=errs["loss"],
+                     step_share_beyond=errs["step_share_beyond"])
+        return errs, worst
+
+    errs, worst = readings(card, same_card)
+    _, tf32_worst = readings(fault, fault_same)
+    noise = errs["score_bias_grad"] + [card_noise, cpu_noise]
+    g_max = max(g.abs().max().item() for g in same_cpu.values())
+    table = decoder.embedding.weight.detach().cpu()
+    frozen = all(torch.equal(r["frozen"]["embedding.weight"], table)
+                 for r in (card, fault, cpu))
+    # train_step_f32's limits (the decoder reads BERT's embeddings in
+    # place of its table, the rest of the step is the same), but for the
+    # gradients and moments through each device's own grid: relu elements
+    # at the kink take the other branch there, and this E = 768 decoder's
+    # attention products moved by 6.5e-2 to 8.5e-2 of their largest value
+    # (PERF.md §6; TF32 0.71 to 1.09), so 0.1. From one grid, att_enc and
+    # att_dec still round differently on the two devices, ~1e-7 of their
+    # scale, so an element of relu(att_enc + att_dec) that close to zero
+    # (of 4.4 M a step) would take the other branch and move a row of
+    # enc_att's and dec_att's gradients whole (3.7e-2 of the largest
+    # value, PERF.md §6); with the CPU's branches taken on the card too
+    # (``flipped`` counts the elements whose own sign disagreed), the
+    # gradients differ by the f32 work only: 1e-4.
+    limits = dict(loss=1e-5, bn=1e-4, grads_same_grid=1e-4, grads=0.1,
+                  exp_avg=0.1, exp_avg_sq=0.1, step_share_beyond=1e-2)
+    log("train_bert_step_f32", batch=4, caption_length=12, vocab=VOCAB,
+        embed=BERT_DIM, loss_card=card["loss"], loss_cpu=cpu["loss"],
+        rel_err_max=worst, limits=limits, tf32_rel_err_max=tf32_worst,
+        grad_rel_err_same_grid=errs["grads_same_grid"],
+        relu_elements_flipped=flipped, tf32_relu_elements_flipped=tf32_flipped,
+        grad_max=g_max, score_bias_grad=noise, table_bit_identical=frozen,
+        k1_launches=0, k2_launches=0)
+    check(math.isfinite(card["loss"]), "bert step loss finite", card["loss"])
+    check(frozen and "embedding.weight" not in card["grads"],
+          "bert step: the decoder's table frozen")
+    for key, limit in limits.items():
+        check(worst[key] <= limit,
+              "bert step {} card vs CPU".format(key), worst[key], limit)
+    check(all(tf32_worst[key] > limit for key, limit in limits.items()),
+          "every limit rejects a TF32 bert step", tf32_worst)
+    check(max(noise) <= 1e-6 * g_max, "bert score bias gradient is noise",
+          noise)
+
+
+def phase_train_bert(bmodels, bert, tokenizer, vocab, gen, results):
+    """20 --use_bert steps at the training bench's shapes (batch 32,
+    caption length 25, V = 10,000, dropout 0.5), each batch's embeddings
+    made by the card's BERT within the step; then 30 steps on one batch
+    at decoder_lr 1e-3, whose loss must fall below 0.8x. Returns the
+    trained (encoder, decoder) and the card's embedder."""
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.models.bert_embed import (BertCaptionEmbedder,
+                                                 caption_keys)
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+
+    embedder = BertCaptionEmbedder(vocab, model=copy.deepcopy(bert),
+                                   tokenizer=tokenizer, device="cuda")
+    batches = train_batches(gen, TRAIN_BATCHES, seed=500)
+    run, enc, dec = bert_trainer(bmodels, embedder, 1e-4)
+    imgs = to_device(batches[0]["imgs"], "cuda")
+
+    def encode():
+        with torch.no_grad():
+            encoder_attention_forward(enc, imgs, train=True)
+
+    captions = batches[0]["captions"]
+    pieces = embedder.piece_arrays(captions, caption_keys(captions))[1]
+    bert_gflop = bert_forward_gflop(pieces)
+    gflop = (TRAIN_BATCH * RESNET101_GFLOP + bert_gflop
+             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN, BERT_DIM))
+    counters = zero_counters()
+    row = train_readings(run, batches, encode, gflop * 1e9 / F32_FLOP_PER_S)
+    check_no_kernel(counters, "train_bert", results)
+    bert_ms = time_ms(lambda: embedder(batches[0]["captions"]), iters=10,
+                      warmup=2)
+    learn = learns(bert_trainer(bmodels, embedder, 1e-3)[0], batches[0],
+                   "train_bert")
+    row["f32_peak_share"] = row.pop("peak_share")
+    log("train_bert", batch=TRAIN_BATCH, caption_length=TRAIN_LEN,
+        vocab=VOCAB, embed=BERT_DIM, batches=TRAIN_BATCHES, dropout=0.5,
+        pieces=list(pieces.shape), bert_ms=bert_ms,
+        bert_share_of_step=bert_ms / row["median_step_ms"],
+        model_gflop_per_step=gflop, bert_gflop=bert_gflop,
+        learn_first_last=learn, **row, card=card_line())
+    return enc, dec
+
+
+def phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results):
+    """make_eval_step with BERT's embeddings over 130 items in batches of
+    64 (the last, of 2, at its own size), f32: the embeddings of each
+    caption cut to its length (the eval form), made once on the card and
+    given to both devices; every item's loss and prediction against the
+    CPU's; the first batch again with TF32 on must fail the loss
+    limit."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.data.pipeline import to_device
+    from icd_tpu_torch.models.bert_embed import BertCaptionEmbedder
+    from icd_tpu_torch.testing import f32_products, seeded_captions
+    from icd_tpu_torch.training.attention import make_eval_step
+
+    n, batch = 130, 64
+    imgs = uint8_images(n, seed=23).numpy()
+    captions = seeded_captions(gen, n, 20, VOCAB, START_ID, END_ID,
+                               min_words=3).numpy()
+    lengths = (captions != 0).sum(1).astype(np.int32)
+    embedder = BertCaptionEmbedder(vocab, model=copy.deepcopy(bert),
+                                   tokenizer=tokenizer, device="cuda")
+    f32_products()
+    batches = []
+    for i in range(0, n, batch):
+        emb = embedder(captions[i:i + batch], lengths=lengths[i:i + batch])
+        batches.append((imgs[i:i + batch], captions[i:i + batch],
+                        lengths[i:i + batch] - 1, emb))
+    step = make_eval_step(*trained)
+    counters = zero_counters()
+    losses, preds = [], []
+    t0 = time.perf_counter()
+    for im, cap, dl, emb in batches:
+        loss, pred = step(to_device(im, "cuda"), to_device(cap, "cuda"),
+                          to_device(dl, "cuda"), emb)
+        losses.append(loss.cpu())
+        preds.append(pred.cpu())
+    eval_s = time.perf_counter() - t0
+    check_no_kernel(counters, "eval_bert_f32", results)
+    losses, preds = torch.cat(losses), torch.cat(preds)
+    check(losses.shape == (n,) and preds.shape == (n, 19)
+          and bool(losses.isfinite().all()), "bert eval shapes",
+          losses.shape, preds.shape)
+    cpu_step = make_eval_step(*(copy.deepcopy(m).cpu() for m in trained))
+    t0 = time.perf_counter()
+    cpu = [cpu_step(*(torch.from_numpy(a) for a in (im, cap, dl)), emb.cpu())
+           for im, cap, dl, emb in batches]
+    cpu_s = time.perf_counter() - t0
+    cpu_loss = torch.cat([loss for loss, _ in cpu])
+    cpu_pred = torch.cat([pred for _, pred in cpu])
+    loss_err = ((losses - cpu_loss).abs() / cpu_loss.abs()).max().item()
+    mask = np.arange(19)[None, :] < (lengths - 1)[:, None]
+    same = float((preds == cpu_pred).numpy()[mask].mean())
+    im, cap, dl, emb = batches[0]
+    f32_products(tf32=True)
+    tf32_loss, _ = step(to_device(im, "cuda"), to_device(cap, "cuda"),
+                        to_device(dl, "cuda"), emb)
+    f32_products()
+    tf32_err = ((tf32_loss.cpu() - cpu_loss[:batch]).abs()
+                / cpu_loss[:batch].abs()).max().item()
+    log("eval_bert_f32", items=n, batch=batch, seconds=eval_s,
+        cpu_seconds=cpu_s, loss_mean=losses.mean().item(),
+        loss_rel_err_vs_cpu=loss_err, tf32_loss_rel_err_vs_cpu=tf32_err,
+        preds_equal_share_vs_cpu=same, k1_launches=0, k2_launches=0)
+    # As eval_f32: the grids' card-vs-CPU difference moves the losses
+    # below the limit, TF32 beyond it.
+    check(loss_err <= 1e-5 < tf32_err, "bert eval losses card vs CPU, TF32",
+          loss_err, tf32_err)
+    check(same == 1.0, "bert eval argmax card == CPU", same)
+
+
 def main():
     import torch
 
@@ -2213,6 +2770,12 @@ def main():
     phase_train_amp_step(models, base, gen, results)
     phase_train_int8_step(models, base, gen, results)
     phase_eval_baseline_f32(trained, gen, results)
+    bert, tokenizer, vocab = phase_bert_f32(gen, results)
+    phase_bert_int8(bert, tokenizer, vocab, gen, results)
+    bmodels = bert_models(models)
+    phase_train_bert_step_f32(bmodels, bert, tokenizer, vocab, gen, results)
+    trained = phase_train_bert(bmodels, bert, tokenizer, vocab, gen, results)
+    phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results)
     log("total", seconds=time.perf_counter() - STARTED)
 
     k1 = dict(name="fused_attention", route="cuda",

@@ -9,14 +9,18 @@ of optax, jax and their companions to an inert stand-in instead, so
 loading never imports them; the weights come through as numpy arrays.
 
 ``save_checkpoint`` writes the same payload from numpy trees
-(``params.encoder_to_jax`` / ``decoder_to_jax``), so ``icd_tpu`` loads
-and evaluates a checkpoint of the port. The port's optimizer state is a
-plain numpy dict (``params.adam_state_to_jax``), which ``icd_tpu``
-cannot resume from.
+(``params.encoder_to_jax`` / ``decoder_to_jax``), so ``icd_tpu`` loads,
+evaluates and resumes a checkpoint of the port. The port's Adam state
+(``params.adam_state_to_jax``: ``count``, ``mu``, ``nu``) is written as
+the state of icd_tpu's two-group optimizer (``optax_adam_state``), its
+classes named as optax names them (``_OptaxPickler``), without importing
+optax.
 """
 
 import os
 import pickle
+
+import numpy as np
 
 from .pathconf import PathConfig
 
@@ -38,6 +42,11 @@ class InertState(tuple):
 
     def __setstate__(self, state):
         self.__dict__["state"] = state
+
+    def __getnewargs__(self):
+        # The fields, as a NamedTuple's: pickle rebuilds the object with
+        # ``cls.__new__(cls, *fields)``, the real class too.
+        return tuple(self)
 
     def __repr__(self):
         return "InertState[{}]{}".format(self.source, tuple.__repr__(self))
@@ -62,6 +71,79 @@ class _CheckpointUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+class _OptaxPickler(pickle._Pickler):
+    """The pure-Python pickler, which writes a stand-in class by the name
+    of the class it stands in for (a ``GLOBAL module name`` opcode), so
+    that unpickling it with optax installed makes the real object."""
+
+    def save_global(self, obj, name=None):
+        if isinstance(obj, type) and issubclass(obj, InertState):
+            module, _, qualname = obj.source.rpartition(".")
+            self.write(pickle.GLOBAL + "{}\n{}\n".format(
+                module, qualname).encode("utf-8"))
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+# The classes of icd_tpu's optimizer state, ``optax.multi_transform`` of
+# an encoder and a decoder group, each ``optax.chain(clip_value, adam)``
+# (icd_tpu/training/baseline.py:156-163, common.py:177-182), as the
+# pickles icd_tpu writes name them (optax 0.2.6).
+_PARTITION = ("optax.transforms._combining", "PartitionState")
+_MASKED = ("optax.transforms._masking", "MaskedState")
+_MASKED_NODE = ("optax.transforms._masking", "MaskedNode")
+_EMPTY = ("optax._src.base", "EmptyState")
+_ADAM = ("optax._src.transform", "ScaleByAdamState")
+
+
+def _child(tree, key):
+    if isinstance(tree, dict):
+        return tree.get(key)
+    if isinstance(tree, list) and key < len(tree):
+        return tree[key]
+    return None
+
+
+def _group_moments(tree, moments, own):
+    """``tree``'s shape with ``moments``' arrays where this group trains
+    (``own``), optax's ``MaskedNode`` where the other group trains, and
+    None at the frozen leaves."""
+    if isinstance(tree, dict):
+        return {k: _group_moments(v, _child(moments, k), own)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_group_moments(v, _child(moments, i), own)
+                for i, v in enumerate(tree)]
+    if moments is None:
+        return None
+    return moments if own else _stand_in(*_MASKED_NODE)()
+
+
+def optax_adam_state(adam, encoder, decoder, grad_clip):
+    """The port's Adam state ``adam`` ({"count", "mu", "nu"}, trees keyed
+    like the trainable tree, ``params.adam_state_to_jax``) as icd_tpu's
+    ``tx.init(trainable)`` lays it out over the checkpoint's ``encoder``
+    and ``decoder`` trees: a ``PartitionState`` of the encoder and the
+    decoder group, each a ``MaskedState`` over (clip's ``EmptyState``,
+    (``ScaleByAdamState(count, mu, nu)``, the learning rate's
+    ``EmptyState``)), without the clip's state when ``grad_clip`` is
+    None. Both groups count every step."""
+    trees = {"encoder": encoder, "decoder": decoder}
+    empty = _stand_in(*_EMPTY)
+    groups = {}
+    for group in trees:
+        mu, nu = ({part: _group_moments(tree, _child(adam[key], part),
+                                        part == group)
+                   for part, tree in trees.items()} for key in ("mu", "nu"))
+        inner = (_stand_in(*_ADAM)(np.asarray(adam["count"], np.int32), mu,
+                                   nu), empty())
+        if grad_clip is not None:
+            inner = (empty(), inner)
+        groups[group] = _stand_in(*_MASKED)(inner)
+    return _stand_in(*_PARTITION)(groups)
+
+
 def save_checkpoint(args, epoch, encoder, decoder, encoder_optimizer,
                     decoder_optimizer, metrics):
     """Write one epoch's training state to
@@ -69,7 +151,13 @@ def save_checkpoint(args, epoch, encoder, decoder, encoder_optimizer,
     reference: checkpoint.py:39-62). The trees are numpy; the file is
     written to ``.tmp`` and published with ``os.replace``, so a run
     killed mid-write never leaves a truncated checkpoint under the real
-    name. Returns the path."""
+    name. A ``decoder_optimizer`` in the port's form ({"count", "mu",
+    "nu"}) is written as icd_tpu's optax state (``optax_adam_state``).
+    Returns the path."""
+    if isinstance(decoder_optimizer, dict) and "mu" in decoder_optimizer:
+        decoder_optimizer = optax_adam_state(
+            decoder_optimizer, encoder, decoder,
+            getattr(args, "grad_clip", None))
     state = {
         "epoch": epoch,
         "metrics": metrics,
@@ -93,7 +181,7 @@ def save_checkpoint(args, epoch, encoder, decoder, encoder_optimizer,
                         "{}_{}.ckpt".format(args.model_name, epoch))
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump(state, f)
+        _OptaxPickler(f, pickle.DEFAULT_PROTOCOL).dump(state)
     os.replace(tmp, path)
     print("Saved checkpoint to {}".format(path))
     return path

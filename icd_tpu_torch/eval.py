@@ -7,7 +7,9 @@
 Loads a checkpoint of the port or of ``icd_tpu`` from
 ``$ICD_TPU_ROOT/checkpoints``, runs the teacher-forced evaluation of
 the val split (``training.baseline.evaluate`` or
-``training.attention.evaluate``, f32 with TF32 off) and writes the
+``training.attention.evaluate``, f32 with TF32 off; an attention
+checkpoint trained ``--use_bert`` is teacher-forced with BERT's
+embeddings, BERT read from ``BERT_MODEL_DIR``) and writes the
 metric dict, the per-sample losses included, to
 ``eval_data/<name>.json``. METEOR needs its jar, or
 ``ICD_TPU_METEOR_PY=1`` (pure Python) or ``ICD_TPU_ALLOW_NO_METEOR=1``

@@ -146,7 +146,8 @@ def decode_step(decoder, encoder_out, att_enc, emb_t, h, c,
 
 
 def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
-                              generator=None, dropout_rate=0.0):
+                              generator=None, dropout_rate=0.0,
+                              embeddings=None):
     """Teacher-forced forward over the whole batch (attention.py:144).
 
     Args:
@@ -155,6 +156,9 @@ def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
         decode_lengths: (B,) int tensor, caption_lengths - 1.
         generator: a ``torch.Generator`` on ``encoder_out``'s device that
             draws the dropout mask (None disables dropout: eval mode).
+        embeddings: optional (B, T + 1, E) caption embeddings (the BERT
+            path, attention.py:242-247), whose first T - 1 rows replace
+            the decoder's table lookup; the table by default.
 
     Returns (predictions (B, T - 1, V), alphas (B, T - 1, P)), zero at
     the steps past a row's decode length; a row that has retired keeps
@@ -168,7 +172,8 @@ def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
                                           encoder_out.shape[-1])
     att, lstm = decoder.attention, decoder.lstm
     att_enc = F.linear(encoder_out, att.enc_att.weight) + att.enc_att.bias
-    embeddings = F.embedding(captions, decoder.embedding.weight)
+    if embeddings is None:
+        embeddings = F.embedding(captions, decoder.embedding.weight)
     steps = captions.shape[1] - 1
     h, c = init_hidden_state(decoder, encoder_out)
 

@@ -19,9 +19,10 @@ Adam's state crosses the same bridge: ``adam_state_to_jax`` writes the
 port's optimizer state as ``{"count", "mu", "nu"}``, numpy trees keyed
 like the JAX trainable tree (``{"decoder": {...}}``, and ``{"encoder":
 {"embed": ...}}`` when the baseline's head trains; frozen leaves left
-out, JAX layouts), and ``adam_state_from_jax`` reads that or an
-``icd_tpu`` checkpoint's optax state back into ``torch.optim.Adam``
-state, for either model family.
+out, JAX layouts), which ``checkpoint.save_checkpoint`` writes as
+optax's state; ``adam_moments`` reads either form back to it, and
+``adam_state_from_jax`` into ``torch.optim.Adam`` state, for either
+model family.
 
 The quantized trees (``quantize_resnet``'s,
 ``quantize_attention_decoder``'s and ``quantize_baseline_decoder``'s)
@@ -37,6 +38,7 @@ import torch
 
 from .models.attention import AttentionDecoder
 from .models.baseline import BaselineDecoder
+from .models.bert import BertEncoder, QLinear
 from .models.encoder import Encoder, EncoderAttention
 from .models.resnet import ResNet
 from .ops.quant import gemm_layout, pad_columns
@@ -269,27 +271,55 @@ def _get(tree, path):
 # ---------------------------------------------------------------------------
 
 def adam_state_to_jax(optimizer, dec, encoder=None):
-    """The port's checkpoint form of ``optimizer``'s state over the decoder
-    ``dec`` (and the baseline ``encoder``'s head):
-    ``{"count": int32, "mu": tree, "nu": tree}``, the trees keyed like the
-    JAX trainable tree, holding the parameters the optimizer has
-    stepped."""
+    """The port's form of ``optimizer``'s state over the decoder ``dec``
+    (and the baseline ``encoder``'s head): ``{"count": int32, "mu": tree,
+    "nu": tree}``, the trees keyed like the JAX trainable tree, holding
+    every parameter the optimizer steps (zeros before its first step).
+    ``checkpoint.save_checkpoint`` writes it as icd_tpu's optax state."""
+    stepped = {id(p) for group in optimizer.param_groups
+               for p in group["params"]}
     count, mu, nu = 0, {}, {}
     for path, param, transposed in trainable_leaves(dec, encoder):
-        state = optimizer.state.get(param)
-        if not state:
+        if id(param) not in stepped:
             continue
-        count = int(state["step"])
+        state = optimizer.state.get(param)
+        if state:
+            count = int(state["step"])
         for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-            value = _numpy(state[key])
+            value = (_numpy(state[key]) if state
+                     else np.zeros(tuple(param.shape), np.float32))
             _put(tree, path, value.T.copy() if transposed else value)
     return {"count": np.int32(count), "mu": mu, "nu": nu}
 
 
+def _array_leaves(tree):
+    """A moment tree with only its arrays: None (frozen) and optax's
+    ``MaskedNode`` (the other group's leaves) dropped, empty subtrees
+    too."""
+    if isinstance(tree, dict):
+        out = {k: _array_leaves(v) for k, v in tree.items()}
+        return {k: v for k, v in out.items() if v is not None} or None
+    if isinstance(tree, list):
+        out = [_array_leaves(v) for v in tree]
+        return out if any(v is not None for v in out) else None
+    if tree is None or isinstance(tree, tuple):
+        return None
+    return np.asarray(tree)
+
+
+def _merge(into, tree):
+    for key, value in tree.items():
+        if isinstance(value, dict) and isinstance(into.get(key), dict):
+            _merge(into[key], value)
+        else:
+            into[key] = value
+
+
 def _optax_adam_states(node):
-    """Every optax ``ScaleByAdamState`` (an inert stand-in, see
-    ``checkpoint.py``) in a checkpoint's optimizer state."""
-    if getattr(node, "source", "").endswith(".ScaleByAdamState"):
+    """Every optax ``ScaleByAdamState`` (optax's own class, or the inert
+    stand-in of ``checkpoint.py``) in an optimizer state."""
+    name = getattr(node, "source", None) or type(node).__name__
+    if name.endswith("ScaleByAdamState"):
         yield node
     elif isinstance(node, dict):
         for value in node.values():
@@ -299,33 +329,42 @@ def _optax_adam_states(node):
             yield from _optax_adam_states(value)
 
 
+def adam_moments(state):
+    """A checkpoint's Adam state in the port's form ({"count", "mu",
+    "nu"}, only the trained leaves): the port's form as it is, or
+    icd_tpu's optax state (``multi_transform`` -> ``masked`` -> (clip,
+    (ScaleByAdamState(count, mu, nu), ...)) per parameter group, each
+    group's moment trees holding a ``MaskedNode`` at the other group's
+    leaves), its groups merged."""
+    if isinstance(state, dict) and "mu" in state:
+        return state
+    out = {"count": None, "mu": {}, "nu": {}}
+    for count, mu, nu in (tuple(s) for s in _optax_adam_states(state)):
+        out["count"] = count
+        for key, tree in (("mu", mu), ("nu", nu)):
+            _merge(out[key], _array_leaves(tree) or {})
+    return out
+
+
 def adam_state_from_jax(state, dec, encoder=None):
     """``torch.optim.Adam`` state, {parameter: {"step", "exp_avg",
     "exp_avg_sq"}}, for the parameters of the decoder ``dec`` (and the
     baseline ``encoder``'s head) that ``state`` holds moments for, on
-    their devices. ``state`` is the port's checkpoint form
-    (``adam_state_to_jax``) or ``icd_tpu``'s optax state:
-    ``multi_transform`` -> ``masked`` -> (clip, (ScaleByAdamState
-    (count, mu, nu), ...)) per parameter group, each group's moment trees
-    holding a ``MaskedNode`` at the other group's leaves."""
-    if isinstance(state, dict) and "mu" in state:
-        adams = [(state["count"], state["mu"], state["nu"])]
-    else:
-        adams = [tuple(s) for s in _optax_adam_states(state)]
+    their devices. ``state`` is either form ``adam_moments`` reads."""
+    adam = adam_moments(state)
     out = {}
-    for count, mu, nu in adams:
-        for path, param, transposed in trainable_leaves(dec, encoder):
-            m, v = (_get(tree, path) for tree in (mu, nu))
-            if not isinstance(m, np.ndarray):
-                continue  # frozen (None) or another group's (MaskedNode)
+    for path, param, transposed in trainable_leaves(dec, encoder):
+        m, v = (_get(adam[key], path) for key in ("mu", "nu"))
+        if not isinstance(m, np.ndarray):
+            continue  # frozen
 
-            def moment(x):
-                x = np.asarray(x, np.float32)
-                t = torch.from_numpy(x.T.copy() if transposed else x.copy())
-                return t.to(device=param.device, dtype=param.dtype)
+        def moment(x):
+            x = np.asarray(x, np.float32)
+            t = torch.from_numpy(x.T.copy() if transposed else x.copy())
+            return t.to(device=param.device, dtype=param.dtype)
 
-            out[param] = {"step": torch.tensor(float(count)),
-                          "exp_avg": moment(m), "exp_avg_sq": moment(v)}
+        out[param] = {"step": torch.tensor(float(adam["count"])),
+                      "exp_avg": moment(m), "exp_avg_sq": moment(v)}
     return out
 
 
@@ -381,3 +420,75 @@ def qdecoder_to_jax(tree):
         if part in out:
             out[part][wq] = out[part][wq][:, :len(out[part][ws])].copy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# BERT
+# ---------------------------------------------------------------------------
+
+_BERT_LINEARS = ("q", "k", "v", "o", "ffn_in", "ffn_out")
+_BERT_TABLES = (("word", "word"), ("pos", "pos"), ("type", "token_type"))
+
+
+def _ln_from(ln, tree):
+    ln.weight.data = _tensor(tree["scale"])
+    ln.bias.data = _tensor(tree["bias"])
+
+
+def _ln_to(ln):
+    return {"scale": _numpy(ln.weight), "bias": _numpy(ln.bias)}
+
+
+def bert_from_jax(params, config):
+    """A ``BertEncoder`` (CPU, eval mode, frozen) from the JAX package's
+    BERT tree (``bert_jax.bert_from_torch``: Linear ``w`` (in, out)) and
+    its config {"num_heads", "ln_eps"}. A quantized tree
+    (``quantize_bert_params``: ``wq``/``ws``/``b`` leaves) gives the W8A8
+    form with ``QLinear``s."""
+    layers = params["layers"]
+    first = layers[0]["ffn_in"]
+    intermediate = np.shape(first["w"] if "w" in first else first["wq"])[1]
+    vocab_size, hidden = np.shape(params["word"])
+    bert = BertEncoder.from_config(dict(
+        vocab_size=vocab_size, hidden_size=hidden,
+        num_hidden_layers=len(layers),
+        num_attention_heads=config["num_heads"],
+        intermediate_size=intermediate,
+        max_position_embeddings=np.shape(params["pos"])[0],
+        type_vocab_size=np.shape(params["type"])[0],
+        layer_norm_eps=config["ln_eps"]))
+    for name, ours in _BERT_TABLES:
+        getattr(bert, ours).weight.data = _tensor(params[name])
+    _ln_from(bert.ln_emb, params["ln_emb"])
+    for layer, tree in zip(bert.layers, layers):
+        for name in _BERT_LINEARS:
+            if "wq" in tree[name]:
+                setattr(layer, name, QLinear(
+                    pad_columns(_tensor(tree[name]["wq"])),
+                    _tensor(tree[name]["ws"]), _tensor(tree[name]["b"])))
+            else:
+                _linear_from(getattr(layer, name), tree[name])
+        _ln_from(layer.ln_att, tree["ln_att"])
+        _ln_from(layer.ln_out, tree["ln_out"])
+    return bert.eval().requires_grad_(False)
+
+
+def bert_to_jax(bert):
+    """(params tree, config) of a ``BertEncoder`` as the JAX package lays
+    them out; a ``QLinear`` becomes {"wq", "ws", "b"}, the int8 weight
+    without its column padding."""
+    def linear(lin):
+        if isinstance(lin, QLinear):
+            return {"wq": _leaf_to(lin.wq)[:, :len(lin.ws)].copy(),
+                    "ws": _leaf_to(lin.ws), "b": _leaf_to(lin.b)}
+        return _linear_to(lin)
+
+    params = {name: _numpy(getattr(bert, ours).weight)
+              for name, ours in _BERT_TABLES}
+    params["ln_emb"] = _ln_to(bert.ln_emb)
+    params["layers"] = [
+        dict({name: linear(getattr(layer, name)) for name in _BERT_LINEARS},
+             ln_att=_ln_to(layer.ln_att), ln_out=_ln_to(layer.ln_out))
+        for layer in bert.layers]
+    return params, {"num_heads": bert.num_heads,
+                    "ln_eps": float(bert.ln_emb.eps)}

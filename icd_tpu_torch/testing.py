@@ -1,6 +1,9 @@
 """Helpers of the card tests and ``chip_smoke.py``: random decoders that
-finish their captions, seeded captions, and one train step of either
-model family recorded for comparison across devices.
+finish their captions, seeded captions, one train step of either model
+family recorded for comparison across devices, and two ways to make a
+second device take the first one's discrete choices (the attention's
+relu branches, the W8A8 BERT's int8 roundings) so that the comparison
+sees only their float work.
 
 A random decoder never emits ``<end>`` among thousands of near-equal
 logits, so every beam search would run to its step limit. ``steer_end``
@@ -9,8 +12,10 @@ input of the ``<end>`` logit, so captions end after a number of steps
 that depends on the image.
 """
 
+import contextlib
 import copy
 import math
+from unittest import mock
 
 import torch
 
@@ -87,14 +92,16 @@ def f32_products(tf32=False):
 
 def train_step_record(encoder, decoder, imgs, captions, decode_lengths,
                       device, lr=1e-4, grad_clip=5.0, alpha_c=1.0,
-                      tf32=False, compute_dtype=None, qresnet=None):
+                      tf32=False, compute_dtype=None, qresnet=None,
+                      embeddings=None):
     """One train step (dropout 0, f32 with TF32 off unless ``tf32``) of
     copies of ``encoder`` and ``decoder`` on ``device``, at
-    ``compute_dtype`` (bf16: --amp) and over the int8 trunk ``qresnet``
-    (--int8_encoder) when given. A baseline decoder (``decode_lengths``
-    None) trains with its encoder's head (--fine_tune_encoder) and <pad>
-    0. Returns the loss and, as CPU tensors keyed by name, the gradients
-    before clipping (``grads``), the updated parameters (``params``),
+    ``compute_dtype`` (bf16: --amp), over the int8 trunk ``qresnet``
+    (--int8_encoder) and on BERT's caption ``embeddings`` (--use_bert)
+    when given. A baseline decoder (``decode_lengths`` None) trains with
+    its encoder's head (--fine_tune_encoder) and <pad> 0. Returns the
+    loss and, as CPU tensors keyed by name, the gradients before clipping
+    (``grads``), the updated parameters (``params``),
     Adam's moments (``exp_avg``, ``exp_avg_sq``) and the encoder's BN
     statistics after the step (``bn``), and the frozen parameters
     (``frozen``)."""
@@ -129,7 +136,8 @@ def train_step_record(encoder, decoder, imgs, captions, decode_lengths,
                                          alpha_c, 0.0, grad_clip,
                                          compute_dtype, qresnet)
         loss = step(imgs.to(device), captions.to(device),
-                    decode_lengths.to(device))
+                    decode_lengths.to(device), None,
+                    None if embeddings is None else embeddings.to(device))
     state = {names[p]: s for p, s in optimizer.state.items()}
     return {
         "loss": loss.item(),
@@ -143,20 +151,60 @@ def train_step_record(encoder, decoder, imgs, captions, decode_lengths,
     }
 
 
+class ReluBranches:
+    """The branches the attention's relu takes over one forward, shared
+    with the forwards after it.
+
+    Within ``applied()``, ``torch.relu`` (which the decoder calls once a
+    step, on att_enc + att_dec) records each call's mask x > 0 while
+    ``masks`` is empty, and else returns x * mask with the recorded masks
+    in turn, whatever the sign of x; ``flipped`` counts the elements of
+    that forward whose own sign disagreed. Two devices' att_enc and
+    att_dec round differently by ~1e-7 of their scale, so an element that
+    close to zero takes the other branch on one of them and its whole
+    term moves a row of enc_att's and dec_att's gradients; with the
+    branches shared, the gradients differ by the float work only."""
+
+    def __init__(self):
+        self.masks, self.flipped = [], 0
+
+    @contextlib.contextmanager
+    def applied(self):
+        record, replay, relu = not self.masks, iter(self.masks), torch.relu
+        self.flipped = 0
+
+        def branch(x):
+            if record:
+                self.masks.append((x > 0).cpu())
+                return relu(x)
+            mask = next(replay).to(x.device)
+            self.flipped += int(((x > 0) != mask).sum())
+            return x * mask
+
+        with mock.patch.object(torch, "relu", branch):
+            yield self
+
+
 def decoder_grads(decoder, grid, captions, decode_lengths, device,
-                  alpha_c=1.0, tf32=False):
+                  alpha_c=1.0, tf32=False, embeddings=None, branches=None):
     """The gradients of the train loss (dropout 0, f32 with TF32 off
-    unless ``tf32``) of a copy of ``decoder`` on ``device`` at ``grid``,
-    as CPU tensors keyed by name: the decoder's half of a train step,
-    from a grid given to both devices alike."""
+    unless ``tf32``) of a copy of ``decoder`` on ``device`` at ``grid``
+    (and on BERT's ``embeddings`` when given), as CPU tensors keyed by
+    name: the decoder's half of a train step, from a grid given to both
+    devices alike; with the relu ``branches`` (``ReluBranches``) when
+    given."""
     from .training.attention import decoder_loss
 
     f32_products(tf32)
     decoder = copy.deepcopy(decoder).to(device)
     decoder.embedding.weight.requires_grad_(False)
-    loss = decoder_loss(decoder, grid.to(device), captions.to(device),
-                        decode_lengths.to(device), alpha_c)
-    loss.backward()
+    with (branches.applied() if branches is not None
+          else contextlib.nullcontext()):
+        loss = decoder_loss(decoder, grid.to(device), captions.to(device),
+                            decode_lengths.to(device), alpha_c,
+                            embeddings=None if embeddings is None
+                            else embeddings.to(device))
+        loss.backward()
     return {n: p.grad.detach().to("cpu", copy=True)
             for n, p in decoder.named_parameters() if p.grad is not None}
 
@@ -170,6 +218,76 @@ def relative_errors(got, want):
 
 
 SCORE_BIAS = "attention.full_att.bias"
+
+
+def to_tf32(x):
+    """An f32 tensor rounded to TF32's 10 mantissa bits (to nearest, ties
+    away from zero), as TF32 tensor cores read their operands; other
+    dtypes unchanged."""
+    if x.dtype != torch.float32:
+        return x
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@contextlib.contextmanager
+def tf32_operands():
+    """Within: ``torch.matmul`` rounds both operands to TF32 first. TF32
+    mode changes a product only where cuBLAS picks a tensor-core kernel,
+    and for BERT's attention products ((B·heads, L, 64) by (64, L)) it
+    may not; the rounding makes the same fault whatever kernel runs, so
+    that a limit can be shown to reject it."""
+    matmul = torch.matmul
+    with mock.patch.object(torch, "matmul",
+                           lambda a, b: matmul(to_tf32(a), to_tf32(b))):
+        yield
+
+
+class SharedQuantization:
+    """The int8 inputs of every W8A8 product of a BERT forward
+    (``models/bert.py``'s ``qmatmul``), shared with the forwards after
+    it.
+
+    Within ``applied()``, while ``records`` is empty each product records
+    its float input, its int8 rows and scales and its int32 sums (on the
+    CPU) and returns what ``qmatmul`` returns. Later, each product
+    compares its own float input with the recorded one (``input_err``:
+    the largest max |d| / max |want| over the products), sums the
+    RECORDED int8 rows with its own weights, checks the int32 sums
+    against the recorded ones (``sums_equal``, over every product of
+    every layer) and dequantizes with the recorded scales. An activation
+    that rounds to the other int8 value on the two devices then carries
+    into no later layer, and what is left between the two forwards is
+    their float work."""
+
+    def __init__(self):
+        self.records, self.input_err, self.sums_equal = [], 0.0, True
+
+    @contextlib.contextmanager
+    def applied(self):
+        from .models import bert
+        from .ops.qlinear import quantize_rows
+        from .ops.quant import int_mm
+
+        record, replay = not self.records, iter(self.records)
+        self.input_err, self.sums_equal = 0.0, True
+
+        def qmatmul(x, wq, ws):
+            if record:
+                xq, xs = quantize_rows(x)
+                acc = int_mm(xq, wq, ws.shape[0])
+                self.records.append(tuple(t.cpu() for t in (x, xq, xs, acc)))
+            else:
+                want, xq, xs, want_acc = next(replay)
+                self.input_err = max(self.input_err, relative_errors(
+                    {"x": x.float().cpu()}, {"x": want.float()})["x"])
+                xq, xs = xq.to(x.device), xs.to(x.device)
+                acc = int_mm(xq, wq, ws.shape[0])
+                self.sums_equal &= torch.equal(acc.cpu(), want_acc)
+            return acc.float() * (xs * ws)
+
+        with mock.patch.object(bert, "qmatmul", qmatmul):
+            yield self
 
 
 def train_step_errors(got, want, lr):

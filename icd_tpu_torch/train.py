@@ -8,7 +8,7 @@
         [--alpha_c 1.] [--fine_tune_embedding True] [--checkpoint NAME]
         [--print_freq 1] [--use_glove True] [--max_caption_length -1]
         [--fine_tune_encoder True] [--amp True] [--int8_encoder True]
-        [--device cuda|cpu]
+        [--use_bert True] [--device cuda|cpu]
 
 Trains the baseline or the attention captioner
 (``training.baseline.train``, ``training.attention.train``), in f32
@@ -23,7 +23,9 @@ baseline's ``embed`` head. Bool flags parse as the reference's
 (``type=bool``: any non-empty string is True), ``--amp`` and
 ``--int8_encoder`` strictly. ``--use_glove`` needs ``--embed_size 300``;
 ``--use_bert`` needs ``--model attention`` and ``--embed_size 768``, and
-raises ``NotImplementedError``: BERT is not ported yet (ROADMAP.md).
+reads BERT from the ``save_pretrained`` directory ``BERT_MODEL_DIR``:
+its embeddings of each caption replace the decoder's table, which stays
+frozen (made on the run's device; ``ICD_TPU_BERT_INT8=1``: W8A8).
 """
 
 import argparse

@@ -23,6 +23,12 @@ its scores are rounded to bf16 before the softmax as JAX's
 ``soft_attention`` rounds them. No kernel of ``ops/`` runs here: the
 teacher-forced forward is plain PyTorch under autograd, as the JAX scan
 is plain XLA.
+
+With ``--use_bert`` the decoder reads BERT's caption embeddings
+(``models/bert_embed.py``) instead of its table, which stays frozen.
+Both make them on the run's device (``ICD_TPU_BERT_INT8=1``: the W8A8
+BERT in training): training on the thread that prepares the next batch,
+from the padded rows; eval from each caption without its padding.
 """
 
 import os
@@ -39,6 +45,7 @@ from ..models.attention import (AttentionDecoderParams,
                                 attention_decoder_forward,
                                 init_attention_decoder,
                                 load_pretrained_embeddings)
+from ..models.bert_embed import BertCaptionEmbedder
 from ..models.encoder import (encoder_attention_forward,
                               encoder_attention_forward_int8,
                               init_encoder_attention)
@@ -46,7 +53,7 @@ from ..models.resnet import merge_bn_stats
 from ..params import decoder_from_jax, encoder_from_jax
 from ..pathconf import _root
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
-from .common import (cast_floating, check_ported, clip_gradients,
+from .common import (as_device_tensor, cast_floating, clip_gradients,
                      cross_entropy, doubly_stochastic_regularizer,
                      eval_batches, make_adam, not_ported, resume_or_build,
                      token_nll, train_epochs, train_precision)
@@ -77,19 +84,23 @@ def build_attention(args, vocab, generator, device=None):
 
 
 def decoder_loss(decoder, grid, captions, decode_lengths, alpha_c,
-                 generator=None, dropout_rate=0.0, compute_dtype=None):
+                 generator=None, dropout_rate=0.0, compute_dtype=None,
+                 embeddings=None):
     """The train loss of the teacher-forced decoder on ``grid``
     (attention.py:100-117), in f32: the CE over the decode window (a
     masked mean: pack_padded over the uniform decode lengths) plus
     ``alpha_c``'s doubly-stochastic term. With ``compute_dtype`` the
     decoder runs on copies of its parameters in that dtype, on the grid
-    cast to it (``cast_floating``)."""
+    and the BERT ``embeddings`` cast to it (``cast_floating``,
+    attention.py:104-105)."""
     captions = captions.long()
     if compute_dtype is not None:
         grid = grid.to(compute_dtype)
+        if embeddings is not None:
+            embeddings = embeddings.to(compute_dtype)
     scores, alphas = cast_floating(
         attention_decoder_forward, decoder, compute_dtype, grid, captions,
-        decode_lengths, generator, dropout_rate)
+        decode_lengths, generator, dropout_rate, embeddings)
     return (cross_entropy(scores, captions[:, 1:], decode_lengths)
             + doubly_stochastic_regularizer(alphas.float(), alpha_c))
 
@@ -98,9 +109,10 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
                     grad_clip=None, compute_dtype=None, qresnet=None):
     """The train step for the attention model (attention.py:72).
 
-    ``step(imgs, captions, decode_lengths, generator)`` runs the frozen
-    encoder in train mode (its new BN statistics written back), the
-    teacher-forced decoder with dropout from ``generator``, the loss
+    ``step(imgs, captions, decode_lengths, generator, embeddings)`` runs
+    the frozen encoder in train mode (its new BN statistics written
+    back), the teacher-forced decoder with dropout from ``generator``
+    (on BERT's ``embeddings`` when given, else on its table), the loss
     (CE over the decode window plus ``alpha_c``'s doubly-stochastic
     term, in f32), the backward, clipping and the Adam step. It returns
     the loss as a 0-d tensor on the device, not synchronised.
@@ -111,7 +123,7 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
     statistics then do not update.
     """
 
-    def step(imgs, captions, decode_lengths, generator=None):
+    def step(imgs, captions, decode_lengths, generator=None, embeddings=None):
         new_stats = None
         with torch.no_grad():
             if qresnet is None:
@@ -121,7 +133,8 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
                 grid = encoder_attention_forward_int8(
                     qresnet, imgs, compute_dtype or torch.float32)
         loss = decoder_loss(decoder, grid, captions, decode_lengths,
-                            alpha_c, generator, dropout_rate, compute_dtype)
+                            alpha_c, generator, dropout_rate, compute_dtype,
+                            embeddings)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         clip_gradients(optimizer, grad_clip)
@@ -137,13 +150,27 @@ def batch_step(step, device, generator=None):
     """``step`` as ``common.train_epoch`` calls it, on a loader batch:
     the arrays go to ``device``, and the decode lengths are the padded
     length - 1 (reference quirk: lengths measured after padding, a
-    uniform decode window covering pads, attention.py:311-313)."""
+    uniform decode window covering pads, attention.py:311-313). A batch's
+    ``embeddings`` (``--use_bert``) go along."""
     def run(batch):
         decode_lengths = np.asarray(batch["padded_lengths"]) - 1
+        embeddings = batch.get("embeddings")
+        if embeddings is not None:
+            embeddings = as_device_tensor(embeddings, device)
         return step(to_device(batch["imgs"], device),
                     to_device(batch["captions"], device),
-                    to_device(decode_lengths, device), generator)
+                    to_device(decode_lengths, device), generator, embeddings)
     return run
+
+
+def with_bert(embedder):
+    """``train_epochs``' ``prepare``: each batch gets its captions' BERT
+    embeddings, of the padded rows as the reference trains
+    (attention.py:242-247)."""
+    def prepare(batch):
+        batch["embeddings"] = embedder(batch["captions"])
+        return batch
+    return prepare
 
 
 def train(args, device=None):
@@ -151,7 +178,6 @@ def train(args, device=None):
     models/attention.py:287-452). Returns (encoder, decoder)."""
     device = resolve_device(device)
     use_exact_f32()
-    check_ported(args)
     dataset = COCODataset("train", caption_max_len=args.max_caption_length)
     vocab = dataset.vocab
     loader = DataLoader(
@@ -164,9 +190,14 @@ def train(args, device=None):
     step = make_train_step(encoder, decoder, optimizer, args.alpha_c,
                            args.decoder_dropout, args.grad_clip,
                            compute_dtype, qresnet)
+    prepare = None
+    if args.use_bert:
+        prepare = with_bert(BertCaptionEmbedder(
+            vocab, device=device,
+            int8=bool(os.environ.get("ICD_TPU_BERT_INT8"))))
     generator = torch.Generator(device).manual_seed(1)
     train_epochs(args, loader, batch_step(step, device, generator), encoder,
-                 decoder, optimizer, start_epoch, metrics)
+                 decoder, optimizer, start_epoch, metrics, prepare)
     print("Model {} finished training for {} epochs.".format(
         args.model_name, args.epochs))
     return encoder, decoder
@@ -177,17 +208,18 @@ def train(args, device=None):
 # ---------------------------------------------------------------------------
 
 def make_eval_step(encoder, decoder):
-    """``step(imgs, captions, decode_lengths)`` -> (per-sample loss (B,),
-    argmax predictions (B, T - 1)) (attention.py:330): eval-mode BN, no
-    dropout; the per-sample CE over the sample's own decode length plus
-    the regularizer with alpha_c = 1 (attention.py:529-531)."""
+    """``step(imgs, captions, decode_lengths, embeddings=None)`` ->
+    (per-sample loss (B,), argmax predictions (B, T - 1))
+    (attention.py:330): eval-mode BN, no dropout, BERT's ``embeddings``
+    when given; the per-sample CE over the sample's own decode length
+    plus the regularizer with alpha_c = 1 (attention.py:529-531)."""
 
     @torch.no_grad()
-    def step(imgs, captions, decode_lengths):
+    def step(imgs, captions, decode_lengths, embeddings=None):
         captions = captions.long()
         grid = encoder_attention_forward(encoder, imgs)
-        scores, alphas = attention_decoder_forward(decoder, grid, captions,
-                                                   decode_lengths)
+        scores, alphas = attention_decoder_forward(
+            decoder, grid, captions, decode_lengths, embeddings=embeddings)
         scores = scores.float()
         nll = token_nll(scores, captions[:, 1:], decode_lengths)
         ce = nll.sum(1) / decode_lengths.float().clamp(min=1.0)
@@ -219,9 +251,11 @@ def evaluate(args, encoder, decoder, batch_size=64, use_bert=False,
     """Teacher-forced eval of the val split (attention.py:368;
     reference: models/attention.py:454-567) from the checkpoint's numpy
     trees ``encoder`` and ``decoder``. Returns the metric dict with the
-    per-sample ``losses``."""
-    if use_bert:
-        raise not_ported("BERT teacher forcing", "BERT")
+    per-sample ``losses``.
+
+    ``use_bert`` teacher-forces with BERT's embeddings of each caption
+    without its padding (the reference's batch-1 texts), made on
+    ``device`` (attention.py:388-400, 430-440)."""
     device = resolve_device(device)
     use_exact_f32()
     # Fail fast on a missing METEOR runtime, before the decode loop.
@@ -240,6 +274,13 @@ def evaluate(args, encoder, decoder, batch_size=64, use_bert=False,
         num_workers=eval_workers(), pad_idx=vocab(PAD_TOKEN))
     step = make_eval_step(encoder_from_jax(encoder).to(device),
                           decoder_from_jax(decoder).to(device))
+    embed = None
+    if use_bert:
+        embedder = BertCaptionEmbedder(vocab, device=device)
+
+        def embed(batch):
+            return embedder(batch["captions"],
+                            lengths=batch["caption_lengths"])
 
     references, hypotheses, losses = [], [], []
     accum_loss = AccumulatingMetric()
@@ -265,7 +306,7 @@ def evaluate(args, encoder, decoder, batch_size=64, use_bert=False,
             print("Batch {}/{}, Loss {:.4f}".format(
                 batch_idx + 1, num_batches, accum_loss.avg()))
 
-    eval_batches(loader, step, device, drain, length_offset=1)
+    eval_batches(loader, step, device, drain, length_offset=1, embed=embed)
     metrics = get_eval_score(references, hypotheses)
     metrics["losses"] = losses
     print("Checkpoint {} finished evaluation in {:.4f} seconds.".format(

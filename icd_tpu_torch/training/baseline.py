@@ -49,10 +49,9 @@ from ..models.resnet import merge_bn_stats
 from ..params import decoder_from_jax, encoder_from_jax
 from ..pathconf import _root
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
-from .common import (cast_floating, check_ported, clip_gradients,
-                     eval_batches, make_adam, not_ported, pad_cross_entropy,
-                     resume_or_build, token_nll, train_epochs,
-                     train_precision)
+from .common import (cast_floating, clip_gradients, eval_batches, make_adam,
+                     not_ported, pad_cross_entropy, resume_or_build,
+                     token_nll, train_epochs, train_precision)
 
 
 def build_baseline(args, vocab, generator, device=None):
@@ -138,7 +137,6 @@ def train(args, device=None):
     models/baseline.py:114-264). Returns (encoder, decoder)."""
     device = resolve_device(device)
     use_exact_f32()
-    check_ported(args)
     dataset = COCODataset("train", caption_max_len=args.max_caption_length)
     vocab = dataset.vocab
     pad_idx = vocab(PAD_TOKEN)

@@ -57,13 +57,6 @@ def not_ported(what, item):
         "{})".format(what, item))
 
 
-def check_ported(args):
-    """Raise for the train flags the port does not run yet, rather than
-    silently training something else."""
-    if getattr(args, "use_bert", False):
-        raise not_ported("--use_bert", "BERT")
-
-
 class LossDrain:
     """Blocked loss fetcher for the per-batch-loss train loops
     (common.py:31).
@@ -233,9 +226,13 @@ def make_adam(args, encoder, decoder, opt_state, head=False):
     """Adam over the trainable parameters (``trainable_parameters``) at
     the CLI's rates, its state loaded from a checkpoint's ``opt_state``
     when there is one (``params.adam_state_from_jax``), for the
-    parameters this run trains."""
+    parameters this run trains. With ``--use_bert`` the decoder's table
+    is frozen whatever ``--fine_tune_embedding`` says: BERT's embeddings
+    replace it (attention.py:190-192)."""
+    fine_tune_embedding = (args.fine_tune_embedding
+                           and not getattr(args, "use_bert", False))
     enc_params, dec_params = trainable_parameters(
-        encoder, decoder, args.fine_tune_embedding, head)
+        encoder, decoder, fine_tune_embedding, head)
     optimizer = make_optimizer(enc_params, dec_params, args.encoder_lr,
                                args.decoder_lr)
     if opt_state is not None:
@@ -333,15 +330,19 @@ def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
 
 
 def train_epochs(args, loader, step, encoder, decoder, optimizer,
-                 start_epoch, metrics):
+                 start_epoch, metrics, prepare=None):
     """Epochs ``start_epoch`` to ``args.epochs - 1`` of ``step`` over
     ``loader`` (the loader's next batch is prepared on a thread while the
-    card computes), each followed by ``checkpoints/<model_name>_<epoch>
-    .ckpt`` with the per-batch losses of every epoch so far."""
+    card computes, and ``prepare(batch)`` runs there too), each followed
+    by ``checkpoints/<model_name>_<epoch>.ckpt`` with the per-batch
+    losses of every epoch so far."""
     epoch_losses = metrics.get("epoch_losses", [])
     for epoch in range(start_epoch, args.epochs):
+        batches = iter(loader)
+        if prepare is not None:
+            batches = map(prepare, batches)
         epoch_losses.append(train_epoch(
-            step, host_prefetch(iter(loader), size=2), epoch, args.epochs,
+            step, host_prefetch(batches, size=2), epoch, args.epochs,
             len(loader), args.print_freq))
         save_checkpoint(args, epoch, encoder_to_jax(encoder),
                         decoder_to_jax(decoder), None,
@@ -349,23 +350,36 @@ def train_epochs(args, loader, step, encoder, decoder, optimizer,
                         {"epoch_losses": epoch_losses})
 
 
-def eval_batches(loader, step, device, drain, length_offset=0):
+def as_device_tensor(array, device):
+    """A numpy array (``to_device``) or a tensor as a tensor on
+    ``device``."""
+    if isinstance(array, torch.Tensor):
+        return array.to(device)
+    return to_device(array, device)
+
+
+def eval_batches(loader, step, device, drain, length_offset=0, embed=None):
     """Run ``step(imgs, captions, caption_lengths - length_offset)`` on
     ``device`` over ``loader``'s batches, the inputs shipped on a thread
     while the card computes the previous batch, and hand each result to
     ``drain(per_sample_loss, preds, batch, batch_idx)`` on the host one
-    batch late, so that the host's work overlaps the card's."""
+    batch late, so that the host's work overlaps the card's. With
+    ``embed``, ``embed(batch)`` (run on that thread too) is the step's
+    fourth input, on ``device``."""
     def staged():
         for batch in iter(loader):
             lengths = np.asarray(batch["caption_lengths"]) - length_offset
-            yield (to_device(batch["imgs"], device),
-                   to_device(batch["captions"], device),
-                   to_device(lengths, device), batch)
+            inputs = [to_device(batch["imgs"], device),
+                      to_device(batch["captions"], device),
+                      to_device(lengths, device)]
+            if embed is not None:
+                inputs.append(as_device_tensor(embed(batch), device))
+            yield inputs, batch
 
     pending = None
-    for batch_idx, (imgs, captions, lengths, batch) in enumerate(
+    for batch_idx, (inputs, batch) in enumerate(
             host_prefetch(staged(), size=2)):
-        per_sample, preds = step(imgs, captions, lengths)
+        per_sample, preds = step(*inputs)
         if pending is not None:
             drain(*pending)
         pending = (per_sample, preds, batch, batch_idx)

@@ -26,7 +26,11 @@ tokens on card and CPU. Training: one f32 step of each model family agrees on ca
 and so do one --amp step and one --int8_encoder step of each (the limits
 are at the tests); the train and eval drivers of both families, with
 --amp and --int8_encoder, run on the card by default and launch neither
-K1 nor K2.
+K1 nor K2. BERT: the aligned caption embeddings in f32 within 1e-5 of the
+CPU's largest value; the W8A8 form with the CPU's int8 inputs shared:
+every product's int32 sums equal, its inputs and output within 1e-5, and
+free-running its output within 1e-3; one --use_bert step within the f32
+step's limits.
 """
 
 import contextlib
@@ -58,10 +62,11 @@ from icd_tpu_torch.ops.fused_beam import (beam_search_fused,
                                           beam_search_fused_reference)
 from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
 from icd_tpu_torch.ops.quant import conv2d_int8, gemm_layout, int_mm
-from icd_tpu_torch.testing import (SCORE_BIAS, decoder_grads,
-                                   relative_errors, seeded_captions,
-                                   steered_decoder, train_step_errors,
-                                   train_step_record)
+from icd_tpu_torch.params import adam_moments
+from icd_tpu_torch.testing import (SCORE_BIAS, SharedQuantization,
+                                   decoder_grads, relative_errors,
+                                   seeded_captions, steered_decoder,
+                                   train_step_errors, train_step_record)
 
 
 @pytest.fixture
@@ -665,7 +670,7 @@ def test_train_and_eval_drivers_run_on_the_card(card, tmp_path,
     chkpt = load_checkpoint(name="card_1.ckpt")
     losses = chkpt["metrics"]["epoch_losses"]
     assert len(losses) == 2 and all(len(e) == 2 for e in losses)
-    assert int(chkpt["decoder_optimizer"]["count"]) == 4
+    assert int(adam_moments(chkpt["decoder_optimizer"])["count"]) == 4
     metrics = ta.evaluate(args, chkpt["encoder"], chkpt["decoder"])
     assert len(metrics["losses"]) == 6
     assert all(math.isfinite(v) for v in metrics["losses"])
@@ -807,8 +812,9 @@ def test_baseline_and_precision_drivers_run_on_the_card(card, tmp_path,
     assert next(decoder.parameters()).device.type == "cuda"
     assert next(encoder.parameters()).device.type == "cuda"
     chkpt = load_checkpoint(name="card_b_1.ckpt")
-    assert int(chkpt["decoder_optimizer"]["count"]) == 4
-    assert set(chkpt["decoder_optimizer"]["mu"]) == {"encoder", "decoder"}
+    adam = adam_moments(chkpt["decoder_optimizer"])
+    assert int(adam["count"]) == 4
+    assert set(adam["mu"]) == {"encoder", "decoder"}
     metrics = tb.evaluate(args(), chkpt["encoder"], chkpt["decoder"])
     assert len(metrics["losses"]) == 6
     assert all(math.isfinite(v) for v in metrics["losses"])
@@ -825,8 +831,12 @@ _NO_CARD = """
 import sys
 from icd_tpu_torch import eval as port_eval, train as port_train
 from icd_tpu_torch.device import resolve_device
+from icd_tpu_torch.models.bert import BERT_BASE, init_bert
+from icd_tpu_torch.models.bert_embed import BertCaptionEmbedder
 from icd_tpu_torch.training import attention, baseline
+bert = init_bert(None, dict(BERT_BASE, num_hidden_layers=0, vocab_size=8))
 calls = [lambda: port_train.main(["x", "--model", "attention"]),
+         lambda: BertCaptionEmbedder(None, model=bert, tokenizer=object()),
          lambda: port_train.main(["x", "--model", "baseline"]),
          lambda: port_eval.main(["x.ckpt", "--model_type", "attention"]),
          lambda: port_eval.main(["x.ckpt", "--model_type", "baseline"])]
@@ -859,3 +869,108 @@ def test_training_entry_points_raise_with_the_card_hidden(card, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "cpu"
+
+
+def _small_bert(seed=3):
+    """A seeded BERT of 2 layers, hidden 64, 4 heads, FFN 128, 100 pieces,
+    and 6 seeded rows of 5 to 20 pieces with their word segments."""
+    from icd_tpu_torch.models.bert import BERT_BASE, init_bert
+
+    gen = torch.Generator().manual_seed(seed)
+    config = dict(BERT_BASE, vocab_size=100, hidden_size=64,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  intermediate_size=128, max_position_embeddings=32)
+    bert = init_bert(gen, config, "cpu")
+    lengths = torch.randint(5, 21, (6,), generator=gen)
+    ids = torch.zeros(6, 20, dtype=torch.int64)
+    mask = torch.zeros(6, 20, dtype=torch.int64)
+    seg = torch.full((6, 20), -1, dtype=torch.int64)
+    for i, n in enumerate(lengths.tolist()):
+        ids[i, :n] = torch.randint(1, 100, (n,), generator=gen)
+        mask[i, :n] = 1
+        seg[i, :n] = torch.sort(torch.randint(0, 12, (n,), generator=gen))[0]
+    return bert, ids, mask, seg
+
+
+def test_bert_on_card_matches_cpu(card):
+    """BERT's aligned embeddings (f32, TF32 off) on the card and on the
+    CPU: within 1e-5 of their largest value (sums in other orders). The
+    W8A8 form: its first product sums the same int32s on both devices;
+    with the CPU's int8 inputs shared (``SharedQuantization``) every
+    product's int32 sums are equal and each product's float input and
+    the output are within 1e-5; free-running, the output within 1e-3
+    (an activation may round to the other int8 value on the card)."""
+    import copy
+
+    from icd_tpu_torch.device import use_exact_f32
+    from icd_tpu_torch.models.bert import (bert_aligned_forward,
+                                           bert_encoder_forward,
+                                           quantize_bert)
+    from icd_tpu_torch.ops.qlinear import quantize_rows
+
+    use_exact_f32()
+    bert, ids, mask, seg = _small_bert()
+    with torch.no_grad():
+        want = bert_aligned_forward(bert, ids, mask, seg, 12)
+        got = bert_aligned_forward(copy.deepcopy(bert).to(card), ids.to(card),
+                                   mask.to(card), seg.to(card), 12).cpu()
+    assert got.shape == (6, 12, 64)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    qbert = quantize_bert(bert)
+    with torch.no_grad():
+        hidden = torch.nn.functional.layer_norm(
+            bert.word.weight[ids] + bert.pos.weight[:20] +
+            bert.token_type.weight[0], (64,), bert.ln_emb.weight,
+            bert.ln_emb.bias, bert.ln_emb.eps).reshape(-1, 64)
+    xq, _ = quantize_rows(hidden)
+    wq = qbert.layers[0].q.wq
+    assert torch.equal(int_mm(xq.to(card), wq.to(card)).cpu(), int_mm(xq, wq))
+    shared = SharedQuantization()
+    with torch.no_grad():
+        qcard = copy.deepcopy(qbert).to(card)
+        q_card = bert_encoder_forward(qcard, ids.to(card),
+                                      mask.to(card)).cpu()
+        with shared.applied():
+            q_cpu = bert_encoder_forward(qbert, ids, mask)
+        with shared.applied():
+            q_shared = bert_encoder_forward(qcard, ids.to(card),
+                                            mask.to(card)).cpu()
+    assert torch.isfinite(q_card).all()
+    valid = mask.bool()
+    assert shared.sums_equal and len(shared.records) == 12
+    assert shared.input_err <= 1e-5
+    assert ((q_shared - q_cpu)[valid].abs().max()
+            / q_cpu[valid].abs().max()).item() <= 1e-5
+    assert ((q_card - q_cpu)[valid].abs().max()
+            / q_cpu[valid].abs().max()).item() <= 1e-3
+
+
+def test_use_bert_train_step_on_card_matches_cpu(card):
+    """One f32 --use_bert step (TF32 off) on seeded unit-scale caption
+    embeddings, with the limits of test_train_step_on_card_matches_cpu;
+    the decoder's table is bit-identical after the step on both."""
+    encoder, decoder, imgs, captions, lens = _small_train_problem()
+    emb = torch.randn(4, 13, 16, generator=torch.Generator().manual_seed(5))
+    lr = 1e-3
+    card_run, cpu_run = (train_step_record(encoder, decoder, imgs, captions,
+                                           lens, dev, lr=lr, grad_clip=0.05,
+                                           embeddings=emb)
+                         for dev in (card, "cpu"))
+    for run in (card_run, cpu_run):
+        assert torch.equal(run["frozen"]["embedding.weight"],
+                           decoder.embedding.weight.detach())
+        assert "embedding.weight" not in run["grads"]
+    errs = train_step_errors(card_run, cpu_run, lr)
+    assert errs["loss"] <= 1e-5 and max(errs["score_bias_grad"]) < 1e-6
+    assert max(errs["bn"].values()) <= 1e-5, errs["bn"]
+    for key in ("grads", "exp_avg", "exp_avg_sq"):
+        assert max(errs[key].values()) <= 1e-2, (key, errs[key])
+    assert errs["step_share_beyond"] <= 1e-2
+    with torch.no_grad():
+        grid, _ = encoder_attention_forward(encoder, imgs, train=True)
+    same = [decoder_grads(decoder, grid, captions, lens, dev, embeddings=emb)
+            for dev in (card, "cpu")]
+    for grads in same:
+        assert grads.pop(SCORE_BIAS).abs().max() < 1e-6
+    errs = relative_errors(*same)
+    assert max(errs.values()) <= 1e-5, errs

@@ -1,7 +1,7 @@
 """icd_tpu_torch stands alone: it imports neither jax nor optax nor
-anything of icd_tpu, nor PIL until an image is decoded (the card machine
-may have none), and its entry points go to the card unless the CPU is
-asked for."""
+anything of icd_tpu, nor transformers or safetensors, nor PIL until an
+image is decoded (the card machine may have none of them), and its entry
+points go to the card unless the CPU is asked for."""
 
 import os
 import subprocess
@@ -22,7 +22,7 @@ for name in names:
 print(len(names))
 print(sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu',
-                                    'PIL')))
+                                    'PIL', 'transformers', 'safetensors')))
 """
 
 
@@ -39,11 +39,13 @@ def test_package_imports_no_jax_and_no_icd_tpu():
 
 @pytest.mark.parametrize("module", [
     "icd_tpu_torch.train", "icd_tpu_torch.eval", "icd_tpu_torch.init",
-    "icd_tpu_torch.training.attention", "icd_tpu_torch.metric"])
+    "icd_tpu_torch.training.attention", "icd_tpu_torch.metric",
+    "icd_tpu_torch.models.bert", "icd_tpu_torch.models.bert_tokenize",
+    "icd_tpu_torch.models.bert_load", "icd_tpu_torch.models.bert_embed"])
 def test_training_modules_import_no_jax_and_no_icd_tpu(module):
     code = ("import sys, {}; print(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu', "
-            "'PIL')))".format(module))
+            "'PIL', 'transformers', 'safetensors')))".format(module))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -101,3 +103,16 @@ def test_training_entry_points_do_not_fall_back_to_the_cpu(use_coco_root):
         port_train.main(["x", "--model", "attention"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_eval.main(["x.ckpt", "--model_type", "attention"])
+
+
+def test_bert_embedder_does_not_fall_back_to_the_cpu():
+    from icd_tpu_torch.models.bert import BERT_BASE, init_bert
+    from icd_tpu_torch.models.bert_embed import BertCaptionEmbedder
+
+    _no_card()
+    bert = init_bert(torch.Generator().manual_seed(0),
+                     dict(BERT_BASE, num_hidden_layers=0, vocab_size=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertCaptionEmbedder(None, model=bert, tokenizer=object())
+    assert BertCaptionEmbedder(None, model=bert, tokenizer=object(),
+                               device="cpu").bert.device.type == "cpu"

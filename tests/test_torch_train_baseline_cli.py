@@ -8,7 +8,9 @@ One module fixture runs icd_tpu's ``training.baseline.train`` for epoch
 head, E = 16, H = 12, batch 4, the head trained with
 ``--fine_tune_encoder``), then resumes epoch 1 from that checkpoint
 twice: with icd_tpu and with the port's CLI. Then both evaluate the
-port's epoch-1 checkpoint. icd_tpu pads the captions to a multiple of
+port's epoch-1 checkpoint. Then the port's CLI trains epoch 0 from its
+own random weights, and both packages resume epoch 1 from that
+checkpoint. icd_tpu pads the captions to a multiple of
 8, the port to the batch's longest: under the pad mask the losses are
 the same.
 
@@ -46,6 +48,8 @@ from icd_tpu_torch import train as port_train
 from icd_tpu_torch.models.attention import init_attention_decoder
 from icd_tpu_torch.models.encoder import Encoder, EncoderAttention
 from icd_tpu_torch.models.resnet import init_resnet
+from icd_tpu_torch.params import adam_moments
+from test_torch_train_cli import optax_structure_matches
 from helpers import (SMALL_DEPTHS, SMALL_DIM, SMALL_WIDTHS, make_train_args,
                      small_init_encoder, small_init_encoder_attention)
 
@@ -147,6 +151,14 @@ def runs(coco_root):
         with open(os.path.join(coco_root, "eval_data",
                                "bcli_pt_1.json")) as f:
             port_metrics = json.load(f)
+        _run(port_train.main, ["bcli_p0"] + _flags(
+            "baseline", SIZES, fine_tune_encoder=True))
+        _run(jax_tb.train, make_train_args(**dict(
+            jax_args, model_name="bcli_pj", epochs=2,
+            checkpoint="bcli_p0_0.ckpt")))
+        _run(port_train.main, ["bcli_pp"] + _flags(
+            "baseline", SIZES, epochs=2, checkpoint="bcli_p0_0.ckpt",
+            fine_tune_encoder=True))
         precision = {}
         for name, model, kw in PRECISION_RUNS:
             sizes = SIZES if model == "baseline" else ATT_SIZES
@@ -186,8 +198,9 @@ def test_resume_from_icd_tpu_baseline_checkpoint_matches_icd_tpu(runs):
                     jax.tree_util.tree_leaves(want["encoder"]["resnet"])):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
 
-    # Adam: the port's own numpy form against optax's two groups.
-    state = got["decoder_optimizer"]
+    # Adam: the port's state (read back to its numpy form) against
+    # optax's two groups.
+    state = adam_moments(got["decoder_optimizer"])
     groups = want["decoder_optimizer"].inner_states
     assert int(state["count"]) == 4
     for group, keys in (("decoder", ("lstm", "linear")),
@@ -223,10 +236,34 @@ def test_eval_of_port_baseline_checkpoint_matches_icd_tpu(runs):
     assert "Started validation..." in runs["eval_lines"]
 
 
+def test_icd_tpu_resumes_port_baseline_checkpoint(runs):
+    """icd_tpu resumes training from the port's epoch-0 baseline
+    checkpoint (the head trained, so both optax groups hold moments):
+    its epoch-1 losses equal the port's own resume of the same checkpoint
+    (rtol 1e-5, as above), and so do the Adam states each writes."""
+    args = make_train_args(model="baseline", fine_tune_encoder=True)
+    start = jax_load_checkpoint(name="bcli_p0_0.ckpt")
+    assert optax_structure_matches(start, args, head=True)
+    want = jax_load_checkpoint(name="bcli_pp_1.ckpt")
+    got = jax_load_checkpoint(name="bcli_pj_1.ckpt")
+    w_losses, g_losses = (c["metrics"]["epoch_losses"] for c in (want, got))
+    assert len(g_losses) == len(w_losses) == 2
+    assert g_losses[0] == w_losses[0]
+    np.testing.assert_allclose(g_losses[1], w_losses[1], rtol=1e-5)
+    assert optax_structure_matches(want, args, head=True)
+    mine, theirs = (adam_moments(c["decoder_optimizer"]) for c in (want, got))
+    assert int(mine["count"]) == int(theirs["count"]) == 4
+    for key in ("mu", "nu"):
+        assert set(mine[key]) == set(theirs[key]) == {"encoder", "decoder"}
+        for g, w in zip(jax.tree_util.tree_leaves(mine[key]),
+                        jax.tree_util.tree_leaves(theirs[key])):
+            np.testing.assert_allclose(g, w, atol=1e-4 * np.abs(w).max())
+
+
 def _float32_trees(chkpt):
+    adam = adam_moments(chkpt["decoder_optimizer"])
     leaves = jax.tree_util.tree_leaves(
-        [chkpt["encoder"], chkpt["decoder"], chkpt["decoder_optimizer"]["mu"],
-         chkpt["decoder_optimizer"]["nu"]])
+        [chkpt["encoder"], chkpt["decoder"], adam["mu"], adam["nu"]])
     return leaves and all(np.asarray(x).dtype == np.float32 for x in leaves)
 
 
@@ -261,8 +298,8 @@ def test_amp_and_int8_train_through_the_cli(runs, name, model, kw):
         for a, b in zip(_bn_stats(chkpts[0]["encoder"]["resnet"]), stats):
             np.testing.assert_array_equal(a, b)
     if kw.get("fine_tune_encoder"):
-        assert set(chkpts[-1]["decoder_optimizer"]["mu"]) == {"encoder",
-                                                               "decoder"}
+        assert set(adam_moments(chkpts[-1]["decoder_optimizer"])["mu"]) == {
+            "encoder", "decoder"}
 
 
 @pytest.mark.parametrize("argv,match", [

@@ -6,7 +6,9 @@ One module fixture runs icd_tpu's ``training.attention.train`` for epoch
 0 (a (1, 1, 1, 1) ResNet of widths (4, 4, 8, 8), A = 10, H = 12,
 E = 16, batch 4), then resumes epoch 1 from that checkpoint twice:
 with icd_tpu and with the port's CLI. Then both evaluate the port's
-epoch-1 checkpoint.
+epoch-1 checkpoint. Last, the port's CLI trains epoch 0 from its own
+random weights and both packages resume epoch 1 from that checkpoint,
+whose Adam state the port writes in optax's layout.
 
 Tolerances, and why: the port and XLA sum in other orders, so the
 per-batch losses agree to rtol 1e-5 and their printed lines (4
@@ -42,6 +44,7 @@ from icd_tpu_torch import train as port_train
 from icd_tpu_torch.models.attention import init_attention_decoder
 from icd_tpu_torch.models.encoder import EncoderAttention
 from icd_tpu_torch.models.resnet import init_resnet
+from icd_tpu_torch.params import adam_moments
 from helpers import (SMALL_DEPTHS, SMALL_DIM, SMALL_WIDTHS, make_train_args,
                      small_init_encoder_attention)
 
@@ -102,6 +105,15 @@ def runs(coco_root):
         with open(os.path.join(coco_root, "eval_data",
                                "tcli_pt_1.json")) as f:
             port_metrics = json.load(f)
+        mp.setattr(ta, "init_encoder_attention", _small_port_encoder)
+        mp.setattr(ta, "init_attention_decoder", functools.partial(
+            init_attention_decoder, encoder_dim=SMALL_DIM))
+        _run(port_train.main, ["tcli_p0"] + _flags())
+        _run(jax_ta.train, make_train_args(
+            model="attention", model_name="tcli_pj", epochs=2,
+            checkpoint="tcli_p0_0.ckpt", **SIZES))
+        _run(port_train.main, ["tcli_pp"] + _flags(
+            epochs=2, checkpoint="tcli_p0_0.ckpt"))
         yield dict(root=coco_root, jax_lines=jax_lines,
                    port_lines=port_lines, jax_metrics=jax_metrics,
                    port_metrics=port_metrics, eval_lines=eval_lines)
@@ -133,8 +145,9 @@ def test_resume_from_icd_tpu_checkpoint_matches_icd_tpu(runs):
                     jax.tree_util.tree_leaves(want["encoder"])):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
 
-    # Adam: the port's own numpy form against the optax state.
-    state = got["decoder_optimizer"]
+    # Adam: the port's state (read back to its numpy form) against
+    # icd_tpu's.
+    state = adam_moments(got["decoder_optimizer"])
     adam = want["decoder_optimizer"].inner_states["decoder"].inner_state[1][0]
     assert int(state["count"]) == int(adam.count) == 4
     for mine, theirs in ((state["mu"], adam.mu), (state["nu"], adam.nu)):
@@ -147,6 +160,51 @@ def test_resume_from_icd_tpu_checkpoint_matches_icd_tpu(runs):
             for g, w in zip(jax.tree_util.tree_leaves(mine[key]),
                             jax.tree_util.tree_leaves(theirs[key])):
                 np.testing.assert_allclose(g, w, atol=1e-4 * np.abs(w).max())
+
+
+def optax_structure_matches(chkpt, args, head=False):
+    """The checkpoint's optimizer state has the tree structure of icd_tpu's
+    ``tx.init(trainable)`` over the checkpoint's own trees."""
+    from icd_tpu.models.encoder import trainable_mask
+    from icd_tpu.training.baseline import (_decoder_trainable_mask,
+                                           make_optimizer_for)
+    from icd_tpu.training.common import partition
+
+    params = {"encoder": chkpt["encoder"], "decoder": chkpt["decoder"]}
+    mask = {"encoder": trainable_mask(params["encoder"], head=head),
+            "decoder": _decoder_trainable_mask(params["decoder"],
+                                               args.fine_tune_embedding)}
+    if args.use_bert:
+        mask["decoder"]["embedding"] = False
+    trainable, _ = partition(params, mask)
+    want = make_optimizer_for(trainable, args).init(trainable)
+    return (jax.tree_util.tree_structure(chkpt["decoder_optimizer"])
+            == jax.tree_util.tree_structure(want))
+
+
+def test_icd_tpu_resumes_port_checkpoint(runs):
+    """icd_tpu resumes training from the port's epoch-0 checkpoint, whose
+    Adam state has optax's layout: its epoch-1 losses equal the port's
+    own resume of the same checkpoint (rtol 1e-5, as above), and so do
+    the Adam states each writes."""
+    start = jax_load_checkpoint(name="tcli_p0_0.ckpt")
+    assert optax_structure_matches(start, make_train_args(model="attention"))
+    assert int(adam_moments(start["decoder_optimizer"])["count"]) == 2
+    want = jax_load_checkpoint(name="tcli_pp_1.ckpt")
+    got = jax_load_checkpoint(name="tcli_pj_1.ckpt")
+    w_losses, g_losses = (c["metrics"]["epoch_losses"] for c in (want, got))
+    assert len(g_losses) == len(w_losses) == 2
+    assert g_losses[0] == w_losses[0]
+    np.testing.assert_allclose(g_losses[1], w_losses[1], rtol=1e-5)
+    assert optax_structure_matches(want, make_train_args(model="attention"))
+    mine, theirs = (adam_moments(c["decoder_optimizer"]) for c in (want, got))
+    assert int(mine["count"]) == int(theirs["count"]) == 4
+    for key in ("mu", "nu"):
+        for tree in (mine[key], theirs[key]):
+            tree["decoder"]["attention"]["full_att"].pop("b")
+        for g, w in zip(jax.tree_util.tree_leaves(mine[key]),
+                        jax.tree_util.tree_leaves(theirs[key])):
+            np.testing.assert_allclose(g, w, atol=1e-4 * np.abs(w).max())
 
 
 def test_eval_of_port_checkpoint_matches_icd_tpu(runs):
@@ -192,7 +250,14 @@ def test_init_vocab_matches_icd_tpu(coco_root, tmp_path, monkeypatch,
     assert got.w2i == want.w2i and got.i2w == want.i2w
 
 
-def test_unported_train_options_raise(use_coco_root):
+def test_unported_train_options_raise(coco_root, tmp_path, monkeypatch):
+    """What the port's train CLI does not run yet raises, naming its
+    ROADMAP item: a present models/resnet101.pth (its conversion)."""
+    for part in (("cocoapi", "annotations"), ("pkldata",)):
+        shutil.copytree(os.path.join(coco_root, *part),
+                        tmp_path.joinpath(*part))
+    (tmp_path / "models").mkdir()
+    (tmp_path / "models" / "resnet101.pth").write_bytes(b"")
+    monkeypatch.setenv("ICD_TPU_ROOT", str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        port_train.main(["tcli_no", "--model", "attention", "--use_bert",
-                         "True", "--embed_size", "768", "--device", "cpu"])
+        port_train.main(["tcli_no"] + _flags())

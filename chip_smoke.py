@@ -199,10 +199,35 @@ Phases, one line of output each:
 26. eval_bert_f32  the eval step on embeddings of the captions cut to
                their lengths over 130 items: losses within 1e-5 of the
                CPU's (TF32 beyond), predictions equal.
+27. mesh_nccl1  a one-rank NCCL group in this process, a (1, 1) mesh:
+               three f32 steps of each family (mesh_models; batch 32,
+               caption length 25, V=10,000, lr 1e-4) through the mesh
+               path (testing.mesh_train: BN statistics, loss counts and
+               the gradient bucket over the group) bit-equal to the same
+               steps without a mesh; the step's median ms beside the
+               unmeshed step's (in turns); the sharded greedy and beam
+               captioners at batch 64 bf16 with tokens equal to the
+               one-card captioners they wrap, K1 launched once a decode
+               step and its first call held against its plain version.
+               Writes build/mesh/{models,reference}.pt;
+28. mesh_gloo_shared  four gloo ranks spawned on the one card
+               (parallel.run_ranks), a (2, 2) mesh, the decoders split
+               over the vocabulary: the same three steps of each family
+               against mesh_nccl1's one-rank run within MESH_LIMITS,
+               each of which a run with TF32 on or with the n_model-times
+               gradient of a library collective's backward must exceed;
+               the sharded captioners at batch 64 bf16 (tokens equal to
+               the one-card captioner on each data shard's rows; K1 on
+               every rank, its first call on rank 0 against its plain
+               version; in f32 the gathered greedy tokens equal to one
+               card's batch of 64); wall seconds of four ranks sharing
+               one card, a correctness run, not a scaling figure.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must have launched its kernels, and the baseline,
-train, eval and BERT paths, which have none, none.
+train, eval and BERT paths, which have none, none. The mesh phases'
+train steps launch neither K1 nor K2; their sharded captioners launch
+K1 on every rank.
 
 Then one JSON line of every kernel's numbers (K2's with its per-phase
 ms), the card's name and power limit as nvidia-smi gives them, and last
@@ -2730,6 +2755,437 @@ def phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results):
     check(same == 1.0, "bert eval argmax card == CPU", same)
 
 
+# ---------------------------------------------------------------------------
+# The multi-chip path (mesh_nccl1, mesh_gloo_shared)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS, MESH_LR = 3, 1e-4
+MESH_DIR = os.path.join(BUILD_DIR, "mesh")
+SCORE_BIAS_KEY = ("attention", "full_att", "b")
+
+
+def mesh_models(models):
+    """The models the mesh phases train: the attention model of
+    full_width_models and the baseline model of train_baseline_models."""
+    return {"attention": models, "baseline": train_baseline_models(models)}
+
+
+def tree_leaves(tree, prefix=()):
+    """{path: array} of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(tree_leaves(value, prefix + (key,)))
+        return out
+    return {prefix: tree}
+
+
+def mesh_errors(got, want, lr):
+    """How far one testing.mesh_train result is from another: the losses'
+    largest relative error; over the decoder's tensors the largest
+    max |d| / max |want| of the parameters and of Adam's mu and nu, and
+    the share of parameter elements more than lr / 100 apart (the score
+    bias, zero in exact arithmetic, left out of all but the share)."""
+    import numpy as np
+
+    out = {"loss": max(abs(a - b) / abs(b) for a, b in zip(
+        got["losses"], want["losses"]))}
+    for key, tree in (("params", "decoder"), ("mu", "mu"), ("nu", "nu")):
+        g = tree_leaves(got[tree] if tree == "decoder" else got["adam"][tree])
+        w = tree_leaves(want[tree] if tree == "decoder"
+                        else want["adam"][tree])
+        out[key] = max(float(np.abs(g[k] - w[k]).max())
+                       / max(float(np.abs(w[k]).max()), 1e-30)
+                       for k in w if k[-3:] != SCORE_BIAS_KEY)
+    g, w = tree_leaves(got["decoder"]), tree_leaves(want["decoder"])
+    out["share_beyond"] = (sum(int((np.abs(g[k] - w[k]) > lr / 100).sum())
+                               for k in w)
+                           / sum(w[k].size for k in w))
+    return out
+
+
+def mesh_step_ms(family, fam_models, batch, mesh, rounds=5):
+    """Median ms (CUDA events around each) of f32 steps of fresh copies
+    of ``family`` on ``batch`` (the train loop's batch_step), on
+    ``mesh`` and with none, in turns (mesh, none, none, mesh) for
+    ``rounds`` rounds after one warm-up step each: (mesh ms, no-mesh
+    ms)."""
+    import types
+
+    import torch
+
+    from icd_tpu_torch.training import attention, baseline
+    from icd_tpu_torch.training.common import make_adam
+
+    def runner(on):
+        enc, dec = (copy.deepcopy(m) for m in fam_models)
+        args = types.SimpleNamespace(encoder_lr=MESH_LR, decoder_lr=MESH_LR,
+                                     fine_tune_embedding=True,
+                                     use_bert=False)
+        optimizer = make_adam(args, enc, dec, None, mesh=on)
+        if family == "baseline":
+            return baseline.batch_step(baseline.make_train_step(
+                enc, dec, optimizer, 0, 5.0, mesh=on), "cuda", on)
+        return attention.batch_step(attention.make_train_step(
+            enc, dec, optimizer, 1.0, 0.0, 5.0, mesh=on), "cuda", None, on)
+
+    runs = {"mesh": runner(mesh), "none": runner(None)}
+    times = {"mesh": [], "none": []}
+    for run in runs.values():
+        run(batch)
+    for _ in range(rounds):
+        for key in ("mesh", "none", "none", "mesh"):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            runs[key](batch)
+            end.record()
+            times[key].append((start, end))
+    torch.cuda.synchronize()
+    return tuple(sorted(s.elapsed_time(e) for s, e in times[key])[rounds]
+                 for key in ("mesh", "none"))
+
+
+@contextlib.contextmanager
+def k1_first_call():
+    """Keep K1's first call on the decode path (inputs, keywords,
+    outputs) while the path runs through the kernel, to hold it against
+    the plain version after."""
+    import icd_tpu_torch.models.attention as attention
+
+    kernel = attention.fused_attention
+    seen = []
+
+    def probe(*args, **kw):
+        out = kernel(*args, **kw)
+        if not seen:
+            seen.append(([a.clone() for a in args], kw,
+                         [o.clone() for o in out]))
+        return out
+
+    attention.fused_attention = probe
+    try:
+        yield seen
+    finally:
+        attention.fused_attention = kernel
+
+
+def k1_call_errors(seen):
+    """K1's recorded bf16 call against its plain version in f32 on the
+    same inputs, with phase_k1's bf16 limits: (ctx error, alpha error)."""
+    import torch
+
+    from icd_tpu_torch.ops.fused_attention import fused_attention_reference
+
+    args, kw, (ctx, alpha) = seen[0]
+    ref_ctx, ref_alpha = fused_attention_reference(
+        *(t.float() for t in args), **kw)
+    err = (ctx.float() - ref_ctx).abs()
+    check(bool((err <= 2 ** -8 * ref_ctx.abs() + 1e-5).all()),
+          "mesh K1 vs plain: bf16 ctx error", err.max().item())
+    alpha_err = (alpha - ref_alpha).abs().max().item()
+    check(alpha_err <= 1e-5, "mesh K1 vs plain: alpha error", alpha_err)
+    torch.cuda.synchronize()
+    return err.max().item(), alpha_err
+
+
+def mesh_captions(mesh, models, imgs, probe=False):
+    """The sharded greedy and per-step beam captioners of the attention
+    model on ``mesh`` at bf16 over ``imgs``: tokens, beam outputs, K1's
+    launches on each path and, with ``probe``, K1's first call held
+    against its plain version."""
+    import torch
+
+    from icd_tpu_torch.decoding.serve import (
+        make_sharded_attention_captioner, make_sharded_beam_captioner)
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+
+    encoder, decoder = models
+    greedy = make_sharded_attention_captioner(encoder, decoder, START_ID,
+                                              END_ID, mesh)
+    beam = make_sharded_beam_captioner(encoder, decoder, START_ID, END_ID,
+                                       mesh, beam_size=BEAMS)
+    greedy(imgs[:8])
+    beam(imgs[:8])  # warm-up: kernel load, cuDNN plans
+    zero_counters()
+    with k1_first_call() as seen:
+        toks, _ = greedy(imgs)
+    torch.cuda.synchronize()
+    k1_greedy = fused_attention.launches
+    k1_errs = k1_call_errors(seen) if probe else None
+    counters = zero_counters()
+    out = beam(imgs)
+    torch.cuda.synchronize()
+    k1_beam = fused_attention.launches
+    check(counters[1].launches == 0, "sharded beam launched K2",
+          counters[1].launches)
+    return dict(greedy=greedy, beam=beam, toks=toks.cpu(),
+                seq=out["seq"].cpu(), seq_len=out["seq_len"].cpu(),
+                found=out["found"].cpu(), steps=out["steps"],
+                k1_greedy=k1_greedy, k1_beam=k1_beam, k1_errs=k1_errs)
+
+
+def phase_mesh_nccl1(models, gen, results):
+    """A one-rank NCCL group in this process and a (1, 1) mesh on it: the
+    f32 steps of both families through the mesh path against the same
+    steps without a mesh; the step's ms beside the unsharded step's; the
+    sharded captioners at batch 64 bf16 against the one-card captioners
+    they wrap. Writes the models, the batches and this run's results
+    under build/mesh for mesh_gloo_shared."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from icd_tpu_torch.parallel import make_mesh
+    from icd_tpu_torch.parallel.mesh import TIMEOUT
+    from icd_tpu_torch.testing import f32_products, mesh_train
+
+    f32_products()
+    os.makedirs(MESH_DIR, exist_ok=True)
+    fams = mesh_models(models)
+    batches = train_batches(gen, MESH_STEPS, seed=300)
+    imgs = uint8_images(IMAGES, seed=12).cuda()
+    tmp = tempfile.mkdtemp(prefix="icd_nccl1_")
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+        rank=0, world_size=1, timeout=TIMEOUT,
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        runs, fields = {}, {}
+        counters = zero_counters()
+        for family, fam_models in fams.items():
+            meshed = mesh_train(mesh, family, *(copy.deepcopy(m)
+                                                for m in fam_models),
+                                batches, lr=MESH_LR)
+            plain = mesh_train(None, family, *(copy.deepcopy(m)
+                                               for m in fam_models),
+                               batches, lr=MESH_LR)
+            errs = mesh_errors(meshed, plain, MESH_LR)
+            leaves = [(tree_leaves(meshed[k]), tree_leaves(plain[k]))
+                      for k in ("decoder", "adam", "bn")]
+            bit_equal = meshed["losses"] == plain["losses"] and all(
+                (g[k] == w[k]).all() for g, w in leaves for k in w)
+            ms = mesh_step_ms(family, fam_models, batches[0], mesh)
+            fields[family] = dict(losses=meshed["losses"],
+                                  rel_err_vs_no_mesh=errs,
+                                  bit_equal=bit_equal, step_ms=ms[0],
+                                  no_mesh_step_ms=ms[1],
+                                  mesh_cost_ms=ms[0] - ms[1])
+            check(bit_equal, "mesh_nccl1 {}: one-rank mesh steps bit-equal "
+                  "to no mesh".format(family), errs)
+            runs[family] = meshed
+        check_no_kernel(counters, "mesh_nccl1_train", results)
+        caps = mesh_captions(mesh, models, imgs, probe=True)
+        # The one-card captioners the sharded ones wrap, on the batch.
+        toks, _ = caps["greedy"].captioner(imgs)
+        ref = caps["beam"].captioner(imgs)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp)
+    check(torch.equal(caps["toks"], toks.cpu()), "mesh_nccl1 greedy tokens")
+    for key in ("seq", "seq_len", "found"):
+        check(torch.equal(caps[key], ref[key].cpu()),
+              "mesh_nccl1 beam " + key)
+    check(caps["steps"] == ref["steps"], "mesh_nccl1 beam steps")
+    steps = greedy_steps(caps["toks"], 25)
+    check(caps["k1_greedy"] == steps and caps["k1_beam"] == caps["steps"]
+          > 0, "mesh_nccl1 K1 launches vs steps", caps["k1_greedy"], steps,
+          caps["k1_beam"], caps["steps"])
+    paths = results["fused_attention"]["launches_by_path"]
+    paths["mesh_nccl1_greedy"] = caps["k1_greedy"]
+    paths["mesh_nccl1_beam"] = caps["k1_beam"]
+    results["fused_beam"]["launches_by_path"]["mesh_nccl1_serve"] = 0
+    torch.save(dict(models=fams, batches=batches, imgs=imgs.cpu()),
+               os.path.join(MESH_DIR, "models.pt"))
+    torch.save(dict(runs=runs, toks=caps["toks"], seq=caps["seq"]),
+               os.path.join(MESH_DIR, "reference.pt"))
+    log("mesh_nccl1", backend="nccl", mesh=[1, 1], batch=TRAIN_BATCH,
+        caption_length=TRAIN_LEN, steps=MESH_STEPS, lr=MESH_LR,
+        families=fields, serve_batch=IMAGES, greedy_steps=steps,
+        beam_steps=caps["steps"], k1_launches=dict(
+            greedy=caps["k1_greedy"], beam=caps["k1_beam"]),
+        k1_vs_plain=dict(ctx_err=caps["k1_errs"][0],
+                         alpha_err=caps["k1_errs"][1]),
+        k2_launches=0)
+
+
+@contextlib.contextmanager
+def library_collectives(n_model):
+    """A deliberate fault: the vocab-parallel gather's and sum's backward
+    as ``torch.distributed.nn``'s all_gather and all_reduce give it, the
+    gradient summed over the model group, which for the replicated loss
+    is n_model times each shard's gradient."""
+    from icd_tpu_torch.parallel import vocab
+
+    gather, total = vocab._GatherVocab.backward, vocab._SumOverModel.backward
+
+    def scaled(fn):
+        return staticmethod(lambda ctx, grad: tuple(
+            g * n_model if g is not None else None for g in fn(ctx, grad)))
+
+    vocab._GatherVocab.backward = scaled(gather)
+    vocab._SumOverModel.backward = scaled(total)
+    try:
+        yield
+    finally:
+        vocab._GatherVocab.backward = staticmethod(gather)
+        vocab._SumOverModel.backward = staticmethod(total)
+
+
+def mesh_gloo_rank(rank, world, mesh_dir):
+    """One of mesh_gloo_shared's ranks: a (2, 2) mesh over gloo, the four
+    ranks on the one card. Runs both families' steps clean, with TF32 on
+    and with the n_model-times gradient fault;
+    rank 0 measures each against mesh_nccl1's one-rank run. Then the
+    sharded captioners at batch 64, rank 0 holding K1's first call
+    against its plain version and the tokens against one rank's."""
+    import torch
+
+    from icd_tpu_torch.decoding.serve import make_sharded_attention_captioner
+    from icd_tpu_torch.parallel import make_mesh
+    from icd_tpu_torch.testing import f32_products, mesh_train
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    saved = torch.load(os.path.join(mesh_dir, "models.pt"),
+                       map_location=device, weights_only=False)
+    ref = (torch.load(os.path.join(mesh_dir, "reference.pt"),
+                      weights_only=False) if rank == 0 else None)
+    imgs = saved["imgs"].to(device)
+    mesh = make_mesh(2, 2, device=device)
+    out = {"errors": {}, "train_s": {}}
+    faults = {"clean": contextlib.nullcontext,
+              "tf32": contextlib.nullcontext,
+              "n_model": lambda: library_collectives(2)}
+    counters = zero_counters()
+    for family, fam_models in saved["models"].items():
+        for fault, context in faults.items():
+            f32_products(tf32=fault == "tf32")
+            t0 = time.perf_counter()
+            with context():
+                got = mesh_train(mesh, family, *(copy.deepcopy(m)
+                                                 for m in fam_models),
+                                 saved["batches"], lr=MESH_LR)
+            torch.cuda.synchronize()
+            out["train_s"]["{}_{}".format(family, fault)] = (
+                time.perf_counter() - t0)
+            if rank == 0:
+                out["errors"]["{}_{}".format(family, fault)] = mesh_errors(
+                    got, ref["runs"][family], MESH_LR)
+    out["train_launches"] = [c.launches for c in counters]
+    f32_products()
+    t0 = time.perf_counter()
+    caps = mesh_captions(mesh, saved["models"]["attention"], imgs,
+                         probe=rank == 0)
+    out["serve_s"] = time.perf_counter() - t0
+    out.update({k: caps[k] for k in ("k1_greedy", "k1_beam", "steps",
+                                     "k1_errs")})
+    # The same greedy captioner in f32 (TF32 off), where a batch of 32
+    # and one of 64 round alike.
+    f32 = make_sharded_attention_captioner(
+        *saved["models"]["attention"], START_ID, END_ID, mesh,
+        compute_dtype=torch.float32)
+    toks32 = f32(imgs)[0].cpu()
+    if rank == 0:
+        out["f32_greedy_equal_one_card"] = int(
+            (toks32 == f32.captioner(imgs)[0].cpu()).all(1).sum())
+        # The one-card captioner on each data rank's rows, and one rank's
+        # tokens of the whole batch (mesh_nccl1).
+        half = IMAGES // 2
+        per_shard = torch.cat([caps["greedy"].captioner(
+            imgs[d * half:(d + 1) * half])[0].cpu() for d in range(2)])
+        out["greedy_equal_per_shard"] = bool(torch.equal(caps["toks"],
+                                                         per_shard))
+        out["greedy_equal_one_rank"] = int(
+            (caps["toks"] == ref["toks"]).all(1).sum())
+        out["one_card_batch64_equal_one_rank"] = int(
+            (caps["greedy"].captioner(imgs)[0].cpu() == ref["toks"]).all(1)
+            .sum())
+        out["beam_equal_one_rank"] = int(
+            (caps["seq"] == ref["seq"]).all(1).sum())
+    return out
+
+
+# mesh_gloo_shared's limits against mesh_nccl1's one-rank run after
+# MESH_STEPS steps, each between the clean reading and a fault's (TF32 on,
+# or the vocab-parallel backward summed over the model group: n_model
+# times the gradient), as PERF.md §6 records them. The data ranks' BN
+# sums are taken in another order, so the grids differ in their last
+# bits: the baseline's loss by ~1e-7, its Adam moments by ~1e-5; in the
+# attention model relu elements within that of zero flip, moving the
+# attention products' gradients and moments by ~1 % (PRs 7-9). Adam
+# turns last-bit gradient differences near its eps into up to 1e-2 of a
+# step, and the fc bias starts at zero, so the attention parameters are
+# held by the share of elements more than lr / 100 apart, not by their
+# largest difference.
+MESH_LIMITS = {
+    "attention": dict(loss=1e-4, share_beyond=0.05, mu=0.1, nu=0.1),
+    "baseline": dict(loss=1e-6, params=3e-3, share_beyond=1e-3, mu=1e-4,
+                     nu=1e-4)}
+
+
+def phase_mesh_gloo_shared(results):
+    """Four gloo ranks spawned on the one card, a (2, 2) mesh: three f32
+    steps of each family against mesh_nccl1's one-rank run (the limits
+    above, each of which TF32 or the n_model-times gradient fault must
+    exceed), and the sharded captioners at batch 64 bf16. A correctness
+    run, not a scaling figure: the four ranks share one card."""
+    from icd_tpu_torch.parallel import run_ranks
+
+    phase = "mesh_gloo_shared"
+    t0 = time.perf_counter()
+    outs = run_ranks(mesh_gloo_rank, 4, args=(MESH_DIR,), backend="gloo",
+                     device="cuda:0", limit_s=600)
+    wall_s = time.perf_counter() - t0
+    first = outs[0]
+    errors = first["errors"]
+    log(phase, backend="gloo", ranks=4, mesh=[2, 2],
+        note="four ranks sharing one card: a correctness run, not a "
+        "scaling figure", wall_s=wall_s, errors=errors,
+        train_s=first["train_s"], serve_s=first["serve_s"],
+        k1_launches=dict(greedy=[o["k1_greedy"] for o in outs],
+                         beam=[o["k1_beam"] for o in outs]),
+        beam_steps=[o["steps"] for o in outs],
+        k1_vs_plain=first["k1_errs"],
+        greedy_equal_per_shard=first["greedy_equal_per_shard"],
+        greedy_equal_one_rank=first["greedy_equal_one_rank"],
+        beam_equal_one_rank=first["beam_equal_one_rank"],
+        one_card_batch64_equal_one_rank=first[
+            "one_card_batch64_equal_one_rank"],
+        f32_greedy_equal_one_card=first["f32_greedy_equal_one_card"],
+        limits=MESH_LIMITS, k2_launches=0)
+    for family, limits in MESH_LIMITS.items():
+        clean = errors[family + "_clean"]
+        faults = [errors[family + "_tf32"], errors[family + "_n_model"]]
+        for key, limit in limits.items():
+            check(clean[key] <= limit, "{} {} {} vs the one-rank run"
+                  .format(phase, family, key), clean[key], limit)
+            check(any(f[key] > limit for f in faults), "{} {} {}: TF32 or "
+                  "the n_model-times gradient exceeds the limit".format(
+                      phase, family, key), [f[key] for f in faults], limit)
+    check(all(o["train_launches"] == [0, 0] for o in outs),
+          phase + ": the train steps launched K1 or K2",
+          [o["train_launches"] for o in outs])
+    check(all(o["k1_greedy"] > 0 and o["k1_beam"] > 0 for o in outs),
+          phase + ": K1 launched on every rank")
+    check(first["greedy_equal_per_shard"],
+          phase + ": gathered greedy tokens")
+    # In f32 a data rank's batch of 32 and one card's batch of 64 give the
+    # same tokens (64 of 64 in every run so far); two are allowed to split on
+    # a near tie of two logits within the kernels' last bits. In bf16 the
+    # batch sizes' different cuDNN and cuBLAS plans round differently and
+    # the random decoder's near ties split most captions (printed only).
+    check(first["f32_greedy_equal_one_card"] >= IMAGES - 2,
+          phase + ": f32 sharded greedy tokens vs one card",
+          first["f32_greedy_equal_one_card"])
+    paths = results["fused_attention"]["launches_by_path"]
+    paths[phase + "_greedy"] = [o["k1_greedy"] for o in outs]
+    paths[phase + "_beam"] = [o["k1_beam"] for o in outs]
+    results["fused_beam"]["launches_by_path"][phase] = 0
+
+
 def main():
     import torch
 
@@ -2776,6 +3232,8 @@ def main():
     phase_train_bert_step_f32(bmodels, bert, tokenizer, vocab, gen, results)
     trained = phase_train_bert(bmodels, bert, tokenizer, vocab, gen, results)
     phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results)
+    phase_mesh_nccl1(models, gen, results)
+    phase_mesh_gloo_shared(results)
     log("total", seconds=time.perf_counter() - STARTED)
 
     k1 = dict(name="fused_attention", route="cuda",

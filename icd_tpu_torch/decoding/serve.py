@@ -26,11 +26,15 @@ and greedy decoding (baseline model), all on the card in
   ``make_int8_repeat_captioner`` caption ``repeats`` perturbed copies of
   a batch in one call and return a token checksum (the bench's unit of
   work, ``icd_tpu_torch/bench.py``).
+- ``make_sharded_captioner``, ``make_sharded_attention_captioner`` and
+  ``make_sharded_beam_captioner`` (serve.py:272-428): the same
+  captioners on a mesh's data ranks (``ShardedCaptioner``).
 """
 
 import copy
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device, use_exact_f32
 from ..models.encoder import (Encoder, encoder_attention_forward,
@@ -40,6 +44,7 @@ from ..models.resnet import cast_keep_bn_stats
 from ..models.resnet_int8 import (calibrate_act_maxes, quantize_resnet,
                                   tree_to)
 from ..ops.quant import int8_conv
+from ..parallel.mesh import batch_layout, gather_batch
 from .beam import beam_search_batched
 from .greedy import (greedy_decode_baseline, greedy_decode_baseline_int8,
                      quantize_baseline_decoder)
@@ -355,3 +360,110 @@ def make_int8_repeat_captioner(encoder, decoder, start_id, end_id,
     return RepeatCaptioner(make_int8_captioner(
         encoder, decoder, start_id, end_id, max_len, compute_dtype,
         calib_imgs, act_maxes, int8_decoder, device), repeats)
+
+
+class ShardedCaptioner:
+    """A one-card ``captioner`` on a mesh's data ranks (serve.py:272):
+    its weights on every rank, each data rank captioning its rows of the
+    batch (``parallel.batch_rows``) and the ranks' outputs gathered into
+    the batch's, in row order (``parallel.gather_batch``), on every rank.
+    A batch that does not divide over the data ranks is captioned whole
+    on each. The greedy loops may stop on one rank before another: a
+    finished caption emits ``end_id`` from then on, so its tokens are
+    the same. A beam search's ``steps`` is the most any data rank ran,
+    as JAX's one vmapped loop counts it."""
+
+    def __init__(self, captioner, mesh):
+        self.captioner, self.mesh = captioner, mesh
+        self.act_maxes = captioner.act_maxes
+
+    @torch.inference_mode()
+    def __call__(self, imgs):
+        rows, group = batch_layout(self.mesh, len(imgs))
+        out = self.captioner(imgs[rows])
+        if group is None:
+            return out
+        if isinstance(out, tuple):
+            return tuple(gather_batch(x, self.mesh) for x in out)
+        if isinstance(out, dict):
+            steps = torch.tensor(out["steps"], device=out["seq"].device)
+            dist.all_reduce(steps, op=dist.ReduceOp.MAX, group=group)
+            return dict({key: gather_batch(value, self.mesh)
+                         for key, value in out.items() if key != "steps"},
+                        steps=int(steps))
+        return gather_batch(out, self.mesh)
+
+
+def make_sharded_captioner(encoder, decoder, start_id, end_id, mesh,
+                           max_len=25, compute_dtype=torch.bfloat16,
+                           int8=False, calib_imgs=None, act_maxes=None,
+                           int8_decoder=False):
+    """The baseline model's greedy captioner on ``mesh``'s data ranks
+    (serve.py:272): the float encoder cast whole, or with ``int8`` the
+    static-int8 backbone (``calib_imgs`` or ``act_maxes``, as
+    ``make_int8_captioner``) and its cast ``embed``; the float decoder,
+    or with ``int8_decoder`` the W8A8 one. Weights on every rank, on
+    ``mesh.device``."""
+    device = mesh.device
+    if compute_dtype == torch.float32:
+        use_exact_f32()
+    qresnet = None
+    if int8:
+        qresnet, act_maxes = build_int8_backbone(
+            encoder, compute_dtype, device, calib_imgs, act_maxes)
+        head = Encoder(None, copy.deepcopy(encoder.embed).to(
+            device=device, dtype=compute_dtype))
+    else:
+        head = _device_encoder(encoder, compute_dtype, device,
+                               keep_bn_stats=False)
+    dec, qdec = _baseline_decoder(decoder, compute_dtype, device,
+                                  int8_decoder)
+    return ShardedCaptioner(BaselineCaptioner(
+        head, dec, start_id, end_id, max_len, compute_dtype, device,
+        qresnet, act_maxes if int8 else None, qdec), mesh)
+
+
+def make_sharded_attention_captioner(encoder, decoder, start_id, end_id,
+                                     mesh, max_len=25,
+                                     compute_dtype=torch.bfloat16,
+                                     int8=False, calib_imgs=None,
+                                     act_maxes=None):
+    """The attention model's greedy captioner on ``mesh``'s data ranks
+    (serve.py:371): ``make_attention_captioner``, or with ``int8``
+    ``make_int8_attention_captioner``'s static-int8 backbone; each rank's
+    decode steps take their attention from K1. Returns (tokens,
+    alphas) of the batch."""
+    if int8:
+        captioner = make_int8_attention_captioner(
+            encoder, decoder, start_id, end_id, max_len, compute_dtype,
+            calib_imgs, act_maxes, device=mesh.device)
+    else:
+        captioner = make_attention_captioner(
+            encoder, decoder, start_id, end_id, max_len, compute_dtype,
+            device=mesh.device)
+    return ShardedCaptioner(captioner, mesh)
+
+
+def make_sharded_beam_captioner(encoder, decoder, start_id, end_id, mesh,
+                                beam_size=5, compute_dtype=torch.bfloat16,
+                                int8=False, calib_imgs=None, act_maxes=None):
+    """Beam search on ``mesh``'s data ranks (serve.py:398): the per-step
+    ``beam_search_batched`` (one K1 launch a step on each rank) over the
+    float encoder cast whole, as ``_replicated_attention_fwd`` casts it,
+    or with ``int8`` the static-int8 backbone. Returns the
+    ``beam_search_batched`` dict of the batch."""
+    device = mesh.device
+    if compute_dtype == torch.float32:
+        use_exact_f32()
+    if int8:
+        enc = None
+        qresnet, act_maxes = build_int8_backbone(
+            encoder, compute_dtype, device, calib_imgs, act_maxes)
+    else:
+        enc = _device_encoder(encoder, compute_dtype, device,
+                              keep_bn_stats=False)
+        qresnet, act_maxes = None, None
+    dec = copy.deepcopy(decoder).to(device=device, dtype=compute_dtype)
+    return ShardedCaptioner(BeamCaptioner(
+        enc, dec.eval(), start_id, end_id, beam_size, compute_dtype, device,
+        qresnet=qresnet, act_maxes=act_maxes), mesh)

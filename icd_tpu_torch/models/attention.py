@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.fused_attention import fused_attention
+from .baseline import VocabProjection
 from .baseline import load_pretrained_embeddings  # noqa: F401 (attention.py:79)
 from .encoder import ENCODER_DIM
 from .lstm import gates_to_state, init_lstm, lstm_cell
@@ -54,7 +55,7 @@ class AttentionDecoder(nn.Module):
         self.h_lin = nn.Linear(encoder_dim, decoder_dim)
         self.c_lin = nn.Linear(encoder_dim, decoder_dim)
         self.f_beta = nn.Linear(decoder_dim, encoder_dim)
-        self.fc = nn.Linear(decoder_dim, vocab_size)
+        self.fc = VocabProjection(decoder_dim, vocab_size)
         self.embedding = nn.Embedding(vocab_size, embed_size)
 
     @property
@@ -147,7 +148,7 @@ def decode_step(decoder, encoder_out, att_enc, emb_t, h, c,
 
 def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
                               generator=None, dropout_rate=0.0,
-                              embeddings=None):
+                              embeddings=None, mask_rows=None):
     """Teacher-forced forward over the whole batch (attention.py:144).
 
     Args:
@@ -159,6 +160,10 @@ def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
         embeddings: optional (B, T + 1, E) caption embeddings (the BERT
             path, attention.py:242-247), whose first T - 1 rows replace
             the decoder's table lookup; the table by default.
+        mask_rows: (rows, n) when the batch is ``rows`` of a global batch
+            of n (a rank's data shard): the dropout mask is drawn for the
+            n rows and these rows kept, so that the ranks of a mesh drop
+            what one device would (``dropout``).
 
     Returns (predictions (B, T - 1, V), alphas (B, T - 1, P)), zero at
     the steps past a row's decode length; a row that has retired keeps
@@ -173,7 +178,7 @@ def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
     att, lstm = decoder.attention, decoder.lstm
     att_enc = F.linear(encoder_out, att.enc_att.weight) + att.enc_att.bias
     if embeddings is None:
-        embeddings = F.embedding(captions, decoder.embedding.weight)
+        embeddings = decoder.embedding(captions)
     steps = captions.shape[1] - 1
     h, c = init_hidden_state(decoder, encoder_out)
 
@@ -211,16 +216,19 @@ def attention_decoder_forward(decoder, encoder_out, captions, decode_lengths,
 
     out = torch.stack(hs, dim=1)  # (B, T - 1, H)
     if generator is not None and dropout_rate > 0.0:
-        out = dropout(out, dropout_rate, generator)
-    preds = F.linear(out, decoder.fc.weight) + decoder.fc.bias
+        out = dropout(out, dropout_rate, generator, mask_rows)
+    preds = decoder.fc(out)
     preds = torch.where(active[..., None], preds, 0.0)
     return preds, torch.stack(alphas, dim=1)
 
 
-def dropout(x, rate, generator):
+def dropout(x, rate, generator, mask_rows=None):
     """Zero each element with probability ``rate`` and scale the rest by
     1 / (1 - rate) (attention.py:235-237), the mask drawn from
-    ``generator``, which must live on ``x``'s device."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < 1.0 - rate
+    ``generator``, which must live on ``x``'s device. With ``mask_rows``
+    = (rows, n) the mask is drawn for n rows and ``x`` takes ``rows`` of
+    it, as JAX draws one mask for the global batch."""
+    rows, n = (slice(None), x.shape[0]) if mask_rows is None else mask_rows
+    keep = torch.rand((n,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device, dtype=x.dtype)[rows] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)

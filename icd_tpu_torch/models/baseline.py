@@ -6,7 +6,8 @@ the embedded caption minus its last token; a Linear projects each
 output to vocab logits. Parameter names follow the JAX tree:
 ``embedding`` (``nn.Embedding``), ``lstm`` (``nn.LSTMCell``, stepped by
 ``lstm.lstm_cell`` in the JAX package's gate and bias order) and
-``linear`` (``nn.Linear``; ``params.py`` maps the layouts).
+``linear`` (``VocabProjection``, an ``nn.Linear``; ``params.py`` maps
+the layouts).
 """
 
 import copy
@@ -29,12 +30,23 @@ class BaselineDecoderParams:
     vocab_size = None  # Must override.
 
 
+class VocabProjection(nn.Linear):
+    """The decoders' output projection to vocab logits: x W^T + b as two
+    operations, as JAX's ``x @ w + b`` (in bf16 ``F.linear`` with a bias
+    would add it before the product's one rounding). The teacher-forced
+    forwards call it as a module, so that ``parallel/vocab.py`` can put
+    a vocab-parallel projection in its place."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight) + self.bias
+
+
 class BaselineDecoder(nn.Module):
     def __init__(self, vocab_size, embed_size=512, hidden_size=512):
         super().__init__()
         self.embedding = nn.Embedding(vocab_size, embed_size)
         self.lstm = nn.LSTMCell(embed_size, hidden_size)
-        self.linear = nn.Linear(hidden_size, vocab_size)
+        self.linear = VocabProjection(hidden_size, vocab_size)
 
 
 def init_baseline_decoder(generator, params, dtype=torch.float32,
@@ -78,4 +90,4 @@ def baseline_decoder_forward(decoder, img_features, captions):
     emb = decoder.embedding(captions[:, :-1])
     xs = torch.cat([img_features[:, None, :].to(emb.dtype), emb], dim=1)
     outs, _ = lstm_scan(decoder.lstm, xs)
-    return F.linear(outs, decoder.linear.weight) + decoder.linear.bias
+    return decoder.linear(outs)

@@ -67,7 +67,7 @@ def _embed(embed, pooled):
 
 
 def encoder_forward(encoder, imgs, compute_dtype=None, conv=None,
-                    train=False):
+                    train=False, group=None):
     """(B, H, W, 3) uint8/float -> (B, embed_size) features (encoder.py:51).
 
     ``conv`` replaces the backbone's convolution (the dynamic
@@ -76,11 +76,12 @@ def encoder_forward(encoder, imgs, compute_dtype=None, conv=None,
     (features, new_stats), the backbone's new BN running statistics.
     ``compute_dtype`` applies to the backbone only: the pooled features
     are cast to the head's dtype, so under --amp the head computes in
-    f32 (encoder.py:58-60).
+    f32 (encoder.py:58-60). ``group``: train-mode BN statistics over a
+    data group's global batch (``resnet.batch_norm_train``).
     """
     x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
     out = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype,
-                         conv=conv, train=train)
+                         conv=conv, train=train, group=group)
     if not train:
         return _embed(encoder.embed, global_avg_pool(out))
     feats, stats = out
@@ -111,18 +112,19 @@ def init_encoder_attention(generator, dtype=torch.float32, device=None):
 
 
 def encoder_attention_forward(encoder, imgs, compute_dtype=None,
-                              grid=ATTENTION_GRID, train=False):
+                              grid=ATTENTION_GRID, train=False, group=None):
     """(B, H, W, 3) uint8/float -> (B, gh, gw, 2048) grid (encoder.py:64).
 
     uint8 input gets the ImageNet normalisation (encoder.py:67); float
     input is fed as it is. In eval mode this returns only the grid, as
     BN leaves the parameters unchanged; with ``train=True`` it returns
     (grid, new_stats), the backbone's new BN running statistics
-    (``resnet.merge_bn_stats`` stores them).
+    (``resnet.merge_bn_stats`` stores them), over a data ``group``'s
+    global batch when one is given.
     """
     x = normalize_imagenet(imgs) if imgs.dtype == torch.uint8 else imgs
     out = resnet_forward(encoder.resnet, x, compute_dtype=compute_dtype,
-                         train=train)
+                         train=train, group=group)
     if not train:
         return adaptive_avg_pool2d(out, grid)
     feats, stats = out

@@ -22,6 +22,7 @@ back, as the JAX train step threads its new tree back
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -67,7 +68,7 @@ def batch_norm(x, bn, compute_dtype=None):
     return y.to(x.dtype)
 
 
-def batch_norm_train(x, bn, compute_dtype=None):
+def batch_norm_train(x, bn, compute_dtype=None, group=None):
     """Train-mode BatchNorm over NHWC channels (resnet.py:48, train=True):
     (y, {"mean", "var"}), the new running statistics.
 
@@ -75,14 +76,28 @@ def batch_norm_train(x, bn, compute_dtype=None):
     normalise with the biased variance; the running variance blends in
     the unbiased one with ``BN_MOMENTUM``, as torch tracks it. ``bn`` is
     not changed.
+
+    With a data ``group`` (``x`` one rank's equal share of the batch) the
+    statistics are the global batch's, as ``jnp.mean`` of a batch-sharded
+    array reduces across devices: the ranks' means averaged (the global
+    mean, since the shares are equal), then the ranks' mean squared
+    deviations from it averaged (the global biased variance); n counts
+    the global batch. The averages round in another order than JAX's one
+    global sum, an ulp apart; in exchange the path without a group is the
+    one-device computation unchanged, and a group of one rank computes
+    it to the bit. The trunk takes no gradient in either model family
+    (``training.common.trainable_parameters``), so these collectives need
+    no backward and have none.
     """
     scale, bias = bn.scale, bn.bias
     if compute_dtype is not None:
         scale, bias = scale.to(compute_dtype), bias.to(compute_dtype)
     xs = x.to(bn.mean.dtype)
-    mean = xs.mean(dim=(0, 1, 2))
-    var = (xs - mean).square().mean(dim=(0, 1, 2))
     n = x.shape[0] * x.shape[1] * x.shape[2]
+    mean = _mean_over_ranks(xs.mean(dim=(0, 1, 2)), group)
+    var = _mean_over_ranks((xs - mean).square().mean(dim=(0, 1, 2)), group)
+    if group is not None:
+        n *= dist.get_world_size(group)
     unbiased = var * (n / max(n - 1, 1))
     stats = {"mean": (1 - BN_MOMENTUM) * bn.mean + BN_MOMENTUM * mean,
              "var": (1 - BN_MOMENTUM) * bn.var + BN_MOMENTUM * unbiased}
@@ -91,12 +106,21 @@ def batch_norm_train(x, bn, compute_dtype=None):
     return y.to(x.dtype), stats
 
 
-def _bn(x, bn, compute_dtype, stats):
-    """Eval-mode BN when ``stats`` is None; else train-mode BN, its new
-    running statistics recorded in ``stats`` under the module."""
+def _mean_over_ranks(x, group):
+    """``x`` averaged over the ranks of ``group`` (itself without one)."""
+    if group is None:
+        return x
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
+
+
+def _bn(x, bn, compute_dtype, stats, group=None):
+    """Eval-mode BN when ``stats`` is None; else train-mode BN (over the
+    data ``group``'s global batch), its new running statistics recorded
+    in ``stats`` under the module."""
     if stats is None:
         return batch_norm(x, bn, compute_dtype)
-    y, stats[bn] = batch_norm_train(x, bn, compute_dtype)
+    y, stats[bn] = batch_norm_train(x, bn, compute_dtype, group)
     return y
 
 
@@ -249,26 +273,28 @@ def _w(p, compute_dtype):
     return p if compute_dtype is None else p.to(compute_dtype)
 
 
-def _bottleneck(block, x, compute_dtype, conv=conv2d, stats=None):
+def _bottleneck(block, x, compute_dtype, conv=conv2d, stats=None,
+                group=None):
     """1x1 -> 3x3(stride) -> 1x1 bottleneck with projection shortcut."""
     out = _bn(conv(x, _w(block.conv1, compute_dtype)),
-              block.bn1, compute_dtype, stats).relu()
+              block.bn1, compute_dtype, stats, group).relu()
     out = _bn(conv(out, _w(block.conv2, compute_dtype),
                    stride=block.stride, padding=1),
-              block.bn2, compute_dtype, stats).relu()
+              block.bn2, compute_dtype, stats, group).relu()
     out = _bn(conv(out, _w(block.conv3, compute_dtype)),
-              block.bn3, compute_dtype, stats)
+              block.bn3, compute_dtype, stats, group)
     if block.downsample is not None:
         shortcut = _bn(
             conv(x, _w(block.downsample.conv, compute_dtype),
                  stride=block.stride),
-            block.downsample.bn, compute_dtype, stats)
+            block.downsample.bn, compute_dtype, stats, group)
     else:
         shortcut = x
     return (out + shortcut).relu()
 
 
-def resnet_forward(resnet, x, compute_dtype=None, conv=None, train=False):
+def resnet_forward(resnet, x, compute_dtype=None, conv=None, train=False,
+                   group=None):
     """Run the backbone: NHWC in, NHWC features at stride 32 (resnet.py:230).
 
     In eval mode it returns the features. With ``train=True`` BN
@@ -280,7 +306,9 @@ def resnet_forward(resnet, x, compute_dtype=None, conv=None, train=False):
     ``compute_dtype`` the input takes the weights' dtype. ``conv``
     replaces ``conv2d`` (NHWC x OIHW, same arguments): calibration
     records each convolution's input through it, and
-    ``ops.quant.int8_conv`` plugs in there.
+    ``ops.quant.int8_conv`` plugs in there. In train mode a data
+    ``group`` takes the BN statistics over the ranks' global batch
+    (``batch_norm_train``).
     """
     if conv is None:
         conv = conv2d
@@ -290,9 +318,9 @@ def resnet_forward(resnet, x, compute_dtype=None, conv=None, train=False):
         x = x.to(compute_dtype)
     stats = {} if train else None
     out = conv(x, _w(resnet.stem.conv, compute_dtype), stride=2, padding=3)
-    out = _bn(out, resnet.stem.bn, compute_dtype, stats).relu()
+    out = _bn(out, resnet.stem.bn, compute_dtype, stats, group).relu()
     out = max_pool(out, window=3, stride=2, padding=1)
     for blocks in resnet.layers:
         for block in blocks:
-            out = _bottleneck(block, out, compute_dtype, conv, stats)
+            out = _bottleneck(block, out, compute_dtype, conv, stats, group)
     return out if stats is None else (out, stats)

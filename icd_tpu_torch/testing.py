@@ -315,3 +315,254 @@ def train_step_errors(got, want, lr):
     out["step_share_beyond"] = (sum(int((d > 1e-2).sum()) for d in steps)
                                 / sum(d.numel() for d in steps))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The multi-chip path: programs for the ranks of ``parallel.run_ranks``
+# ---------------------------------------------------------------------------
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
+
+
+def mesh_train(mesh, family, encoder, decoder, batches, lr=1e-3,
+               grad_clip=5.0, dropout=0.0, alpha_c=1.0, compute_dtype=None,
+               qresnet=None, fine_tune_embedding=True, use_bert=False,
+               opt_state=None):
+    """Train steps of ``family`` ("baseline" or "attention") over
+    ``batches`` on ``mesh`` (None: this process alone), as the train
+    functions run them: ``make_adam`` (Adam at ``lr`` from ``opt_state``,
+    the decoder cut to its vocab shards on the mesh), the family's
+    ``make_train_step`` and each rank's rows of every batch. A batch is
+    a dict of global numpy arrays: "imgs", "captions" (<pad> 0) and,
+    with ``use_bert``, "embeddings"; the attention model decodes the
+    padded length - 1. The dropout mask comes from a generator seeded 1
+    on the modules' device. Returns the global losses and, gathered to
+    full vocab, the decoder and Adam's state as numpy trees
+    (``params.decoder_to_jax``, ``adam_state_to_jax``) and the trunk's
+    BN statistics by buffer name."""
+    from types import SimpleNamespace
+
+    from .params import adam_state_to_jax, decoder_to_jax
+    from .parallel.mesh import shard_batch
+    from .parallel.vocab import unshard_decoder
+    from .training import attention, baseline
+    from .training.common import make_adam
+
+    device = decoder.lstm.weight_ih.device
+    args = SimpleNamespace(encoder_lr=lr, decoder_lr=lr, use_bert=use_bert,
+                           fine_tune_embedding=fine_tune_embedding)
+    optimizer = make_adam(args, encoder, decoder, opt_state, mesh=mesh)
+    if family == "baseline":
+        step = baseline.make_train_step(encoder, decoder, optimizer, 0,
+                                        grad_clip, compute_dtype, qresnet,
+                                        mesh)
+    else:
+        step = attention.make_train_step(encoder, decoder, optimizer,
+                                         alpha_c, dropout, grad_clip,
+                                         compute_dtype, qresnet, mesh)
+    generator = torch.Generator(device).manual_seed(1)
+    losses = []
+    for batch in batches:
+        n = len(batch["captions"])
+        local = {key: torch.from_numpy(x).to(device) for key, x in (
+            batch if mesh is None else shard_batch(batch, mesh)).items()}
+        if family == "baseline":
+            loss = step(local["imgs"], local["captions"], n)
+        else:
+            caps = local["captions"]
+            lengths = torch.full((len(caps),), caps.shape[1] - 1,
+                                 device=device)
+            loss = step(local["imgs"], caps, lengths, generator,
+                        local.get("embeddings"), n)
+        losses.append(float(loss))
+    if mesh is not None:
+        unshard_decoder(decoder, mesh, optimizer)
+    return dict(losses=losses, decoder=decoder_to_jax(decoder),
+                adam=adam_state_to_jax(optimizer, decoder),
+                bn={name: buf.cpu().numpy() for name, buf
+                    in encoder.resnet.named_buffers()})
+
+
+def vocab_grads(decoder, family, inputs, mesh=None):
+    """The gradients of every decoder parameter (a numpy tree keyed as
+    ``params.decoder_to_jax``) of one teacher-forced loss on ``inputs``
+    (the whole batch on every rank: "feats" or "grid", "captions"), the
+    decoder cut to its vocab shards on ``mesh`` and their gradients
+    gathered back to the full vocabulary. The loss is the family's
+    train CE (plus the attention regulariser) of the gathered logits,
+    replicated on every model rank, as the JAX package computes it."""
+    import torch.distributed as dist
+
+    from .models.attention import attention_decoder_forward
+    from .models.baseline import baseline_decoder_forward
+    from .params import _put, decoder_leaves
+    from .parallel.mesh import decoder_param_specs
+    from .parallel.vocab import shard_decoder
+    from .training.common import (cross_entropy,
+                                  doubly_stochastic_regularizer,
+                                  pad_cross_entropy)
+
+    specs = decoder_param_specs(decoder)
+    if mesh is not None:
+        shard_decoder(decoder, mesh)
+    caps = inputs["captions"].long()
+    if family == "baseline":
+        logits = baseline_decoder_forward(decoder, inputs["feats"], caps)
+        loss = pad_cross_entropy(logits, caps, 0)
+    else:
+        lengths = torch.full((len(caps),), caps.shape[1] - 1,
+                             device=caps.device)
+        logits, alphas = attention_decoder_forward(decoder, inputs["grid"],
+                                                   caps, lengths)
+        loss = (cross_entropy(logits, caps[:, 1:], lengths)
+                + doubly_stochastic_regularizer(alphas, 1.0))
+    loss.backward()
+    names = {id(p): n for n, p in decoder.named_parameters()}
+    out = {}
+    for path, param, transposed in decoder_leaves(decoder):
+        grad = param.grad
+        if mesh is not None and specs[names[id(param)]] is not None:
+            parts = [torch.empty_like(grad)
+                     for _ in range(mesh.shape["model"])]
+            dist.all_gather(parts, grad.contiguous(), group=mesh.model_group)
+            grad = torch.cat(parts)
+        grad = grad.cpu().numpy()
+        _put(out, path, grad.T.copy() if transposed else grad)
+    return dict(loss=float(loss.detach()), grads=out)
+
+
+def _case_models(case, device):
+    from .params import decoder_from_jax, encoder_from_jax, qresnet_from_jax
+
+    encoder = encoder_from_jax(case["encoder"]).to(device)
+    decoder = decoder_from_jax(case["decoder"]).to(device)
+    qresnet = case.get("qresnet")
+    if qresnet is not None:
+        from .models.resnet_int8 import tree_to
+
+        qresnet = tree_to(qresnet_from_jax(qresnet), device)
+    return encoder, decoder, qresnet
+
+
+def _train_case(mesh, case, device):
+    encoder, decoder, qresnet = _case_models(case, device)
+    return mesh_train(mesh, case["family"], encoder, decoder,
+                      case["batches"], qresnet=qresnet, **case["options"])
+
+
+def _bn_case(mesh, case, device):
+    from .models.resnet import BatchNorm, batch_norm_train
+    from .parallel.mesh import batch_layout
+
+    x = torch.from_numpy(case["x"]).to(device)
+    bn = BatchNorm(x.shape[-1]).to(device)
+    with torch.no_grad():
+        for key, value in case["bn"].items():
+            getattr(bn, key).copy_(torch.from_numpy(value))
+    rows, group = batch_layout(mesh, len(x))
+    with torch.no_grad():
+        y, stats = batch_norm_train(x[rows], bn, group=group)
+    return dict(y=y.cpu().numpy(), mean=stats["mean"].cpu().numpy(),
+                var=stats["var"].cpu().numpy())
+
+
+def _vocab_grads_case(mesh, case, device):
+    from .params import decoder_from_jax
+
+    inputs = {k: torch.from_numpy(v).to(device)
+              for k, v in case["inputs"].items()}
+    return vocab_grads(decoder_from_jax(case["decoder"]).to(device),
+                       case["family"], inputs, mesh)
+
+
+def _captioner_case(mesh, case, device):
+    """The three sharded captioners in f32 on ``case``'s trees and
+    images; numpy outputs."""
+    from .decoding.serve import (make_sharded_attention_captioner,
+                                 make_sharded_beam_captioner,
+                                 make_sharded_captioner)
+    from .params import decoder_from_jax, encoder_from_jax
+
+    imgs = case["imgs"]
+    start, end = case["start_id"], case["end_id"]
+    f32 = torch.float32
+    out = {}
+    if "baseline_encoder" in case:
+        enc = encoder_from_jax(case["baseline_encoder"])
+        dec = decoder_from_jax(case["baseline_decoder"])
+        out["baseline"] = make_sharded_captioner(
+            enc, dec, start, end, mesh, max_len=6, compute_dtype=f32)(imgs)
+        out["baseline_int8"] = make_sharded_captioner(
+            enc, dec, start, end, mesh, max_len=6, compute_dtype=f32,
+            int8=True, act_maxes=case["act_maxes"], int8_decoder=True)(imgs)
+    enc = encoder_from_jax(case["encoder"])
+    dec = decoder_from_jax(case["decoder"])
+    out["greedy"] = make_sharded_attention_captioner(
+        enc, dec, start, end, mesh, max_len=case["max_len"],
+        compute_dtype=f32)(imgs)
+    out["beam"] = make_sharded_beam_captioner(
+        enc, dec, start, end, mesh, beam_size=3, compute_dtype=f32)(imgs)
+    return {k: tuple(_numpy_tree(x) for x in v) if isinstance(v, tuple)
+            else _numpy_tree(v) for k, v in out.items()}
+
+
+def _ckpt_case(mesh, case, device):
+    """Steps on the mesh, the checkpoint of the gathered shards written by
+    global rank 0 under ``case["root"]``, then every rank resumes from
+    the file onto the mesh and steps on."""
+    import os
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from .checkpoint import load_checkpoint, save_checkpoint, \
+        unpack_checkpoint
+    from .params import decoder_from_jax, encoder_from_jax, encoder_to_jax
+
+    encoder, decoder, _ = _case_models(case, device)
+    batches, options = case["batches"], case["options"]
+    first = mesh_train(mesh, case["family"], encoder, decoder,
+                       batches[:-1], **options)
+    os.environ["ICD_TPU_ROOT"] = case["root"]
+    if dist.get_rank() == 0:
+        save_checkpoint(SimpleNamespace(model_name="mesh",
+                                        model=case["family"],
+                                        grad_clip=options.get("grad_clip",
+                                                              5.0)),
+                        0, encoder_to_jax(encoder), first["decoder"], None,
+                        first["adam"], {"epoch_losses": [first["losses"]]})
+    dist.barrier()
+    _, enc_tree, dec_tree, _, opt_state, _ = unpack_checkpoint(
+        load_checkpoint(name="mesh_0.ckpt", verbose=False))
+    resumed = mesh_train(
+        mesh, case["family"], encoder_from_jax(enc_tree).to(device),
+        decoder_from_jax(dec_tree).to(device), batches[-1:],
+        opt_state=opt_state, **options)
+    return dict(first=first, resumed=resumed)
+
+
+MESH_CASES = {"train": _train_case, "bn": _bn_case, "ckpt": _ckpt_case,
+              "vocab_grads": _vocab_grads_case,
+              "captioners": _captioner_case}
+
+
+def run_mesh_cases(rank, world, cases, device="cpu"):
+    """``parallel.run_ranks``' program of the tests: every rank makes the
+    mesh of each case in ``cases`` (a list of dicts with "kind", "name",
+    "n_data", "n_model" and the kind's inputs as numpy) over the first
+    ranks of the world, and the ranks inside it run the case
+    (``MESH_CASES``); on a card f32 runs with TF32 off. Returns {name:
+    this rank's result, None outside the mesh}."""
+    from .parallel.mesh import make_mesh
+
+    if torch.device(device).type == "cuda":
+        f32_products()
+    out = {}
+    for case in cases:
+        mesh = make_mesh(case["n_data"], case["n_model"], device=device)
+        out[case["name"]] = (None if mesh.coords is None else
+                             MESH_CASES[case["kind"]](mesh, case, device))
+    return out

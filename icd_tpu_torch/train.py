@@ -26,10 +26,22 @@ baseline's ``embed`` head. Bool flags parse as the reference's
 reads BERT from the ``save_pretrained`` directory ``BERT_MODEL_DIR``:
 its embeddings of each caption replace the decoder's table, which stays
 frozen (made on the run's device; ``ICD_TPU_BERT_INT8=1``: W8A8).
+
+Across cards: ``torchrun --nproc_per_node N -m icd_tpu_torch.train ...``
+runs N ranks data-parallel, as both JAX train functions lay the batch over a
+``make_data_mesh(batch_size)``: each rank on cuda:LOCAL_RANK in an NCCL
+group (``--device cpu``: on the CPU in a gloo group), with the same
+loader order, training on its share of every batch. N must be the
+largest divisor of ``--batch_size`` that is at most N, else the CLI
+raises before any work and names the count to launch. Only global rank
+0 prints and writes checkpoints, the same file one device writes.
+Without torchrun's environment no process group is made.
 """
 
 import argparse
+import contextlib
 import os
+import sys
 
 
 def _strict_bool(value):
@@ -106,6 +118,24 @@ def build_parser():
     return parser
 
 
+def torchrun_mesh(args):
+    """The data-parallel mesh of a ``torchrun`` launch: checked to cover
+    every launched rank, then the group joined (NCCL on the cards, gloo
+    with ``--device cpu``)."""
+    from .parallel.mesh import data_ranks, init_distributed, make_data_mesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    n_data = data_ranks(args.batch_size, world)
+    if n_data != world:
+        raise ValueError(
+            "--batch_size {} splits over {} ranks, not the {} launched: "
+            "launch torchrun --nproc_per_node {}".format(
+                args.batch_size, n_data, world, n_data))
+    device = init_distributed("gloo" if args.device == "cpu" else "nccl",
+                              args.device)
+    return make_data_mesh(args.batch_size, device=device)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -131,15 +161,25 @@ def main(argv=None):
         if args.embed_size != 768:
             raise ValueError("Expected embedding size of 768 for BERT.")
     if args.model == "baseline":
-        print("Training baseline model...")
         from .training.baseline import train
-
-        train(args, device=args.device)
     elif args.model == "attention":
-        print("Training attention model...")
         from .training.attention import train
+    else:
+        return
+    from .training.common import is_lead
 
-        train(args, device=args.device)
+    mesh = torchrun_mesh(args) if "LOCAL_RANK" in os.environ else None
+    try:
+        # Only global rank 0 prints (the data loader's messages too).
+        with open(os.devnull, "w") as devnull, contextlib.redirect_stdout(
+                sys.stdout if is_lead(mesh) else devnull):
+            print("Training {} model...".format(args.model))
+            train(args, device=args.device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -50,13 +50,15 @@ from ..models.encoder import (encoder_attention_forward,
                               encoder_attention_forward_int8,
                               init_encoder_attention)
 from ..models.resnet import merge_bn_stats
+from ..parallel.mesh import batch_layout, shard_batch
 from ..params import decoder_from_jax, encoder_from_jax
 from ..pathconf import _root
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
 from .common import (as_device_tensor, cast_floating, clip_gradients,
                      cross_entropy, doubly_stochastic_regularizer,
-                     eval_batches, make_adam, not_ported, resume_or_build,
-                     token_nll, train_epochs, train_precision)
+                     eval_batches, is_lead, make_adam, not_ported,
+                     reduce_gradients, resume_or_build, token_nll,
+                     train_epochs, train_precision)
 
 
 def build_attention(args, vocab, generator, device=None):
@@ -85,14 +87,16 @@ def build_attention(args, vocab, generator, device=None):
 
 def decoder_loss(decoder, grid, captions, decode_lengths, alpha_c,
                  generator=None, dropout_rate=0.0, compute_dtype=None,
-                 embeddings=None):
+                 embeddings=None, group=None, mask_rows=None):
     """The train loss of the teacher-forced decoder on ``grid``
     (attention.py:100-117), in f32: the CE over the decode window (a
     masked mean: pack_padded over the uniform decode lengths) plus
     ``alpha_c``'s doubly-stochastic term. With ``compute_dtype`` the
     decoder runs on copies of its parameters in that dtype, on the grid
     and the BERT ``embeddings`` cast to it (``cast_floating``,
-    attention.py:104-105)."""
+    attention.py:104-105). Over a data ``group`` the rows are the rank's
+    ``mask_rows`` = (rows, n) of a global batch of n and the loss is the
+    rank's share of the global one."""
     captions = captions.long()
     if compute_dtype is not None:
         grid = grid.to(compute_dtype)
@@ -100,13 +104,14 @@ def decoder_loss(decoder, grid, captions, decode_lengths, alpha_c,
             embeddings = embeddings.to(compute_dtype)
     scores, alphas = cast_floating(
         attention_decoder_forward, decoder, compute_dtype, grid, captions,
-        decode_lengths, generator, dropout_rate, embeddings)
-    return (cross_entropy(scores, captions[:, 1:], decode_lengths)
-            + doubly_stochastic_regularizer(alphas.float(), alpha_c))
+        decode_lengths, generator, dropout_rate, embeddings, mask_rows)
+    return (cross_entropy(scores, captions[:, 1:], decode_lengths, group)
+            + doubly_stochastic_regularizer(alphas.float(), alpha_c, group))
 
 
 def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
-                    grad_clip=None, compute_dtype=None, qresnet=None):
+                    grad_clip=None, compute_dtype=None, qresnet=None,
+                    mesh=None):
     """The train step for the attention model (attention.py:72).
 
     ``step(imgs, captions, decode_lengths, generator, embeddings)`` runs
@@ -121,62 +126,92 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
     that dtype over f32 masters. ``qresnet`` (--int8_encoder) takes the
     grid from the int8 trunk at ``compute_dtype`` (f32 when None); BN
     statistics then do not update.
+
+    On a ``mesh`` (``parallel/mesh.py``; the decoder already cut to its
+    vocab shards by ``make_adam``) the step takes this rank's rows
+    (``parallel.shard_batch``) of a global batch of ``batch_size`` and
+    runs the JAX step's global semantics: BN statistics over the global
+    batch, the dropout mask of the global batch, the loss over global
+    counts, the gradients summed over the data ranks before clipping,
+    and the global loss returned. A batch that does not divide over the
+    data ranks comes whole to every rank and is not summed (batch_layout).
     """
 
-    def step(imgs, captions, decode_lengths, generator=None, embeddings=None):
+    def step(imgs, captions, decode_lengths, generator=None, embeddings=None,
+             batch_size=None):
+        n = imgs.shape[0] if batch_size is None else batch_size
+        rows, group = batch_layout(mesh, n)
         new_stats = None
         with torch.no_grad():
             if qresnet is None:
                 grid, new_stats = encoder_attention_forward(
-                    encoder, imgs, compute_dtype=compute_dtype, train=True)
+                    encoder, imgs, compute_dtype=compute_dtype, train=True,
+                    group=group)
             else:
                 grid = encoder_attention_forward_int8(
                     qresnet, imgs, compute_dtype or torch.float32)
         loss = decoder_loss(decoder, grid, captions, decode_lengths,
                             alpha_c, generator, dropout_rate, compute_dtype,
-                            embeddings)
+                            embeddings, group,
+                            None if mesh is None else (rows, n))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = reduce_gradients(optimizer, loss, group)
         clip_gradients(optimizer, grad_clip)
         optimizer.step()
         if new_stats is not None:
             merge_bn_stats(new_stats)
-        return loss.detach()
+        return loss
 
     return step
 
 
-def batch_step(step, device, generator=None):
+def batch_step(step, device, generator=None, mesh=None):
     """``step`` as ``common.train_epoch`` calls it, on a loader batch:
-    the arrays go to ``device``, and the decode lengths are the padded
-    length - 1 (reference quirk: lengths measured after padding, a
-    uniform decode window covering pads, attention.py:311-313). A batch's
-    ``embeddings`` (``--use_bert``) go along."""
+    this rank's rows of it (all of them without a ``mesh``) go to
+    ``device``, and the decode lengths are the padded length - 1
+    (reference quirk: lengths measured after padding, a uniform decode
+    window covering pads, attention.py:311-313). A batch's
+    ``embeddings`` (``--use_bert``, already the rank's rows: ``with_bert``)
+    go along."""
     def run(batch):
-        decode_lengths = np.asarray(batch["padded_lengths"]) - 1
+        n = len(batch["captions"])
         embeddings = batch.get("embeddings")
         if embeddings is not None:
             embeddings = as_device_tensor(embeddings, device)
+        if mesh is not None:
+            batch = shard_batch({key: batch[key] for key in (
+                "imgs", "captions", "padded_lengths")}, mesh)
+        decode_lengths = np.asarray(batch["padded_lengths"]) - 1
         return step(to_device(batch["imgs"], device),
                     to_device(batch["captions"], device),
-                    to_device(decode_lengths, device), generator, embeddings)
+                    to_device(decode_lengths, device), generator, embeddings,
+                    n)
     return run
 
 
-def with_bert(embedder):
+def with_bert(embedder, mesh=None):
     """``train_epochs``' ``prepare``: each batch gets its captions' BERT
     embeddings, of the padded rows as the reference trains
-    (attention.py:242-247)."""
+    (attention.py:242-247); on a ``mesh``, of this rank's rows only."""
     def prepare(batch):
-        batch["embeddings"] = embedder(batch["captions"])
+        captions = batch["captions"]
+        if mesh is not None:
+            captions = shard_batch(captions, mesh)
+        batch["embeddings"] = embedder(captions)
         return batch
     return prepare
 
 
-def train(args, device=None):
+def train(args, device=None, mesh=None):
     """Train the attention model (attention.py:133; reference:
-    models/attention.py:287-452). Returns (encoder, decoder)."""
-    device = resolve_device(device)
+    models/attention.py:287-452). Returns (encoder, decoder).
+
+    On a data-parallel ``mesh`` (``icd_tpu_torch.train`` under
+    ``torchrun``) each rank runs on ``mesh.device``: its loader has the
+    same seed and order, and its steps take their rows of each batch;
+    global rank 0 prints and writes the checkpoints."""
+    device = resolve_device(device if mesh is None else mesh.device)
     use_exact_f32()
     dataset = COCODataset("train", caption_max_len=args.max_caption_length)
     vocab = dataset.vocab
@@ -185,21 +220,24 @@ def train(args, device=None):
         num_workers=args.workers, pad_idx=vocab(PAD_TOKEN))
     start_epoch, encoder, decoder, opt_state, metrics = resume_or_build(
         args, build_attention, vocab, device)
-    optimizer = make_adam(args, encoder, decoder, opt_state)
-    compute_dtype, qresnet = train_precision(args, encoder.resnet, loader)
+    optimizer = make_adam(args, encoder, decoder, opt_state, mesh=mesh)
+    compute_dtype, qresnet = train_precision(args, encoder.resnet, loader,
+                                             mesh)
     step = make_train_step(encoder, decoder, optimizer, args.alpha_c,
                            args.decoder_dropout, args.grad_clip,
-                           compute_dtype, qresnet)
+                           compute_dtype, qresnet, mesh)
     prepare = None
     if args.use_bert:
         prepare = with_bert(BertCaptionEmbedder(
             vocab, device=device,
-            int8=bool(os.environ.get("ICD_TPU_BERT_INT8"))))
+            int8=bool(os.environ.get("ICD_TPU_BERT_INT8"))), mesh)
     generator = torch.Generator(device).manual_seed(1)
-    train_epochs(args, loader, batch_step(step, device, generator), encoder,
-                 decoder, optimizer, start_epoch, metrics, prepare)
-    print("Model {} finished training for {} epochs.".format(
-        args.model_name, args.epochs))
+    train_epochs(args, loader, batch_step(step, device, generator, mesh),
+                 encoder, decoder, optimizer, start_epoch, metrics, prepare,
+                 mesh)
+    if is_lead(mesh):
+        print("Model {} finished training for {} epochs.".format(
+            args.model_name, args.epochs))
     return encoder, decoder
 
 

@@ -46,12 +46,14 @@ from ..models.baseline import (BaselineDecoderParams,
 from ..models.encoder import (encoder_forward, encoder_forward_int8,
                               init_encoder)
 from ..models.resnet import merge_bn_stats
+from ..parallel.mesh import batch_layout, shard_batch
 from ..params import decoder_from_jax, encoder_from_jax
 from ..pathconf import _root
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
-from .common import (cast_floating, clip_gradients, eval_batches, make_adam,
-                     not_ported, pad_cross_entropy, resume_or_build,
-                     token_nll, train_epochs, train_precision)
+from .common import (cast_floating, clip_gradients, eval_batches, is_lead,
+                     make_adam, not_ported, pad_cross_entropy,
+                     reduce_gradients, resume_or_build, token_nll,
+                     train_epochs, train_precision)
 
 
 def build_baseline(args, vocab, generator, device=None):
@@ -75,21 +77,23 @@ def build_baseline(args, vocab, generator, device=None):
     return encoder, decoder
 
 
-def decoder_loss(decoder, feats, captions, pad_idx, compute_dtype=None):
+def decoder_loss(decoder, feats, captions, pad_idx, compute_dtype=None,
+                 group=None):
     """The train loss (baseline.py:113-130): the CE of the teacher-forced
     logits against the full caption, pads ignored, in f32. With
     ``compute_dtype`` the decoder runs on copies of its parameters in
-    that dtype, on the features cast to it (``cast_floating``)."""
+    that dtype, on the features cast to it (``cast_floating``). Over a
+    data ``group`` it is the rank's share of the global loss."""
     captions = captions.long()
     if compute_dtype is not None:
         feats = feats.to(compute_dtype)
     scores = cast_floating(baseline_decoder_forward, decoder, compute_dtype,
                            feats, captions)
-    return pad_cross_entropy(scores, captions, pad_idx)
+    return pad_cross_entropy(scores, captions, pad_idx, group)
 
 
 def make_train_step(encoder, decoder, optimizer, pad_idx, grad_clip=None,
-                    compute_dtype=None, qresnet=None):
+                    compute_dtype=None, qresnet=None, mesh=None):
     """The train step for the baseline model (baseline.py:95-145).
 
     ``step(imgs, captions)`` runs the frozen trunk in train mode (its new
@@ -103,39 +107,56 @@ def make_train_step(encoder, decoder, optimizer, pad_idx, grad_clip=None,
     that dtype over f32 masters; the head computes in f32. ``qresnet``
     (--int8_encoder) takes the features from the int8 trunk at
     ``compute_dtype`` (f32 when None); BN statistics then do not update.
+
+    On a ``mesh`` the step takes this rank's rows of a global batch of
+    ``batch_size`` and runs the JAX step's global semantics, as the
+    attention model's ``make_train_step`` says.
     """
 
-    def step(imgs, captions):
+    def step(imgs, captions, batch_size=None):
+        _, group = batch_layout(
+            mesh, imgs.shape[0] if batch_size is None else batch_size)
         new_stats = None
         if qresnet is None:
             feats, new_stats = encoder_forward(
-                encoder, imgs, compute_dtype=compute_dtype, train=True)
+                encoder, imgs, compute_dtype=compute_dtype, train=True,
+                group=group)
         else:
             feats = encoder_forward_int8(encoder, qresnet, imgs,
                                          compute_dtype or torch.float32)
-        loss = decoder_loss(decoder, feats, captions, pad_idx, compute_dtype)
+        loss = decoder_loss(decoder, feats, captions, pad_idx, compute_dtype,
+                            group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = reduce_gradients(optimizer, loss, group)
         clip_gradients(optimizer, grad_clip)
         optimizer.step()
         if new_stats is not None:
             merge_bn_stats(new_stats)
-        return loss.detach()
+        return loss
 
     return step
 
 
-def batch_step(step, device):
-    """``step`` as ``common.train_epoch`` calls it, on a loader batch
-    whose arrays go to ``device``."""
-    return lambda batch: step(to_device(batch["imgs"], device),
-                              to_device(batch["captions"], device))
+def batch_step(step, device, mesh=None):
+    """``step`` as ``common.train_epoch`` calls it, on a loader batch:
+    this rank's rows of it (all of them without a ``mesh``) go to
+    ``device``."""
+    def run(batch):
+        n = len(batch["captions"])
+        if mesh is not None:
+            batch = shard_batch({key: batch[key] for key in (
+                "imgs", "captions")}, mesh)
+        return step(to_device(batch["imgs"], device),
+                    to_device(batch["captions"], device), n)
+    return run
 
 
-def train(args, device=None):
+def train(args, device=None, mesh=None):
     """Train the baseline model (baseline.py:217; reference:
-    models/baseline.py:114-264). Returns (encoder, decoder)."""
-    device = resolve_device(device)
+    models/baseline.py:114-264). Returns (encoder, decoder). On a
+    data-parallel ``mesh``, as the attention model's ``train``."""
+    device = resolve_device(device if mesh is None else mesh.device)
     use_exact_f32()
     dataset = COCODataset("train", caption_max_len=args.max_caption_length)
     vocab = dataset.vocab
@@ -146,15 +167,17 @@ def train(args, device=None):
     start_epoch, encoder, decoder, opt_state, metrics = resume_or_build(
         args, build_baseline, vocab, device)
     optimizer = make_adam(args, encoder, decoder, opt_state,
-                          head=args.fine_tune_encoder)
-    compute_dtype, qresnet = train_precision(args, encoder.resnet, loader)
+                          head=args.fine_tune_encoder, mesh=mesh)
+    compute_dtype, qresnet = train_precision(args, encoder.resnet, loader,
+                                             mesh)
     step = make_train_step(encoder, decoder, optimizer, pad_idx,
-                           args.grad_clip, compute_dtype, qresnet)
+                           args.grad_clip, compute_dtype, qresnet, mesh)
     start = time.time()
-    train_epochs(args, loader, batch_step(step, device), encoder, decoder,
-                 optimizer, start_epoch, metrics)
-    print("Model {} finished training for {} epochs in {:.4f} seconds."
-          .format(args.model_name, args.epochs, time.time() - start))
+    train_epochs(args, loader, batch_step(step, device, mesh), encoder,
+                 decoder, optimizer, start_epoch, metrics, mesh=mesh)
+    if is_lead(mesh):
+        print("Model {} finished training for {} epochs in {:.4f} seconds."
+              .format(args.model_name, args.epochs, time.time() - start))
     return encoder, decoder
 
 

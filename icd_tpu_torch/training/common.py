@@ -23,6 +23,14 @@ under ``torch.no_grad()`` (or on inputs none of which takes gradients),
 so autograd never builds its backward, as the JAX package's
 ``partition`` keeps XLA from building it.
 
+On a mesh (``parallel/mesh.py``) each data rank computes its share of
+the global loss (the CE over the global count, one ``all_reduce`` of it;
+the regulariser's mean over the number of ranks), the gradients of all
+ranks are summed in one
+flat bucket before clipping (the global gradient, then value clipping,
+then Adam, as the JAX step orders them), and only global rank 0 prints
+and writes checkpoints, from the decoder's gathered vocab shards.
+
 AMP (``--amp``, compute dtype bf16): the trunk and the decoder compute
 in bf16 on bf16 copies of their f32 parameters (``cast_floating``); the
 loss, its log-softmax, the regulariser, the master weights, Adam's
@@ -35,6 +43,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..checkpoint import load_checkpoint, save_checkpoint, unpack_checkpoint
@@ -44,6 +53,8 @@ from ..models.encoder import trainable_mask
 from ..models.resnet import merge_bn_stats, resnet_forward
 from ..models.resnet_int8 import calibrate_act_maxes, quantize_resnet
 from ..ops.image import normalize_imagenet
+from ..parallel.mesh import assert_replicated
+from ..parallel.vocab import shard_decoder, unshard_decoder
 from ..params import (adam_state_from_jax, adam_state_to_jax,
                       decoder_from_jax, decoder_to_jax, encoder_from_jax,
                       encoder_to_jax)
@@ -110,28 +121,70 @@ def token_nll(logits, targets, decode_lengths):
     return torch.where(steps[None, :] < decode_lengths[:, None], nll, 0.0)
 
 
-def cross_entropy(logits, targets, decode_lengths):
+def global_count(count, group=None):
+    """``count`` (an integer tensor) summed over the ranks of a data
+    ``group``, as f32 (exact below 2^24): the denominator of a loss whose
+    terms are split over the ranks. Without a group, ``count`` itself
+    (the quotient is the same to the bit)."""
+    if group is None:
+        return count
+    count = count.float()
+    dist.all_reduce(count, group=group)
+    return count
+
+
+def cross_entropy(logits, targets, decode_lengths, group=None):
     """torch CrossEntropyLoss over the positions within each row's decode
-    length (common.py:144): the mean of ``token_nll`` over them, as
-    pack_padded over the decode lengths gives it (attention.py:100-117).
-    """
+    length (common.py:144): the sum of ``token_nll`` over them divided by
+    their number, as pack_padded over the decode lengths gives it
+    (attention.py:100-117); over a data ``group`` the number is the
+    global batch's, so the ranks' losses sum to JAX's global one."""
     nll = token_nll(logits, targets, decode_lengths)
-    return nll.sum() / decode_lengths.sum().clamp(min=1)
+    return nll.sum() / global_count(decode_lengths.sum(), group).clamp(min=1)
 
 
-def pad_cross_entropy(logits, targets, pad_idx):
+def pad_cross_entropy(logits, targets, pad_idx, group=None):
     """torch ``CrossEntropyLoss(ignore_index=pad_idx)`` (common.py:144), in
-    f32: the mean of the NLL over the positions whose target is not
-    ``pad_idx``, divided by max(count, 1). Padding a batch further with
-    ``pad_idx`` changes neither the loss nor its gradients."""
+    f32: the NLL summed over the positions whose target is not
+    ``pad_idx``, divided by max(count, 1), the count over a data
+    ``group``'s global batch when one is given. Padding a batch further
+    with ``pad_idx`` changes neither the loss nor its gradients."""
     counted = targets != pad_idx
     return (torch.where(counted, _nll(logits, targets), 0.0).sum()
-            / counted.sum().clamp(min=1))
+            / global_count(counted.sum(), group).clamp(min=1))
 
 
-def doubly_stochastic_regularizer(alphas, alpha_c):
-    """((alpha_c - sum_t alpha)^2).mean() (reference: attention.py:413-414)."""
-    return ((alpha_c - alphas.sum(dim=1)) ** 2).mean()
+def doubly_stochastic_regularizer(alphas, alpha_c, group=None):
+    """((alpha_c - sum_t alpha)^2).mean() (reference: attention.py:413-414).
+    Over a data ``group`` it is the rank's share of the global batch's
+    mean: its own mean over the number of ranks (the shares are equal)."""
+    mean = ((alpha_c - alphas.sum(dim=1)) ** 2).mean()
+    if group is None:
+        return mean
+    return mean / dist.get_world_size(group)
+
+
+def reduce_gradients(optimizer, loss, group=None):
+    """Sum the gradients of every parameter ``optimizer`` steps, and the
+    rank's ``loss``, over a data ``group``: one flat bucket, one
+    ``all_reduce``. Each rank's loss is its share of the global loss
+    (the losses divide by global counts), so the sums are the global
+    loss and its gradient. Returns the global loss, detached (the rank's
+    own without a group)."""
+    loss = loss.detach()
+    if group is None:
+        return loss
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.reshape(1).to(grads[0].dtype if grads
+                                            else loss.dtype)])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[-1].to(loss.dtype)
 
 
 class _Bound(torch.nn.Module):
@@ -222,13 +275,15 @@ def resume_or_build(args, build, vocab, device):
             decoder_from_jax(dec_tree).to(device), opt_state, metrics)
 
 
-def make_adam(args, encoder, decoder, opt_state, head=False):
+def make_adam(args, encoder, decoder, opt_state, head=False, mesh=None):
     """Adam over the trainable parameters (``trainable_parameters``) at
     the CLI's rates, its state loaded from a checkpoint's ``opt_state``
     when there is one (``params.adam_state_from_jax``), for the
     parameters this run trains. With ``--use_bert`` the decoder's table
     is frozen whatever ``--fine_tune_embedding`` says: BERT's embeddings
-    replace it (attention.py:190-192)."""
+    replace it (attention.py:190-192). On a ``mesh`` the full decoder is
+    then cut to this rank's vocab shards, and its Adam state with it
+    (``parallel.vocab.shard_decoder``)."""
     fine_tune_embedding = (args.fine_tune_embedding
                            and not getattr(args, "use_bert", False))
     enc_params, dec_params = trainable_parameters(
@@ -240,6 +295,8 @@ def make_adam(args, encoder, decoder, opt_state, head=False):
         optimizer.state.update(
             (p, state) for p, state in adam_state_from_jax(
                 opt_state, decoder, encoder).items() if id(p) in trained)
+    if mesh is not None:
+        shard_decoder(decoder, mesh, optimizer)
     return optimizer
 
 
@@ -286,26 +343,41 @@ def prepare_int8_encoder(resnet, loader, compute_dtype, warmup=True):
         resnet, imgs, compute_dtype or torch.float32))
 
 
-def train_precision(args, resnet, loader):
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tree_tensors(v)]
+    return [tree]
+
+
+def train_precision(args, resnet, loader, mesh=None):
     """(compute dtype, int8 trunk or None) of a train run: bf16 with
     --amp (else None: f32), and with --int8_encoder the trunk that
-    ``prepare_int8_encoder`` makes (warmed up unless resuming)."""
+    ``prepare_int8_encoder`` makes (warmed up unless resuming). On a
+    ``mesh`` every rank makes it from the whole warm-up batches, as the
+    JAX package prepares it outside the mesh, and the trees and BN
+    statistics are checked equal on every rank."""
     compute_dtype = torch.bfloat16 if getattr(args, "amp", False) else None
     qresnet = None
     if getattr(args, "int8_encoder", False):
         qresnet = prepare_int8_encoder(resnet, loader, compute_dtype,
                                        warmup=args.checkpoint is None)
+        if mesh is not None:
+            assert_replicated(_tree_tensors(qresnet) + list(resnet.buffers()),
+                              "the --int8_encoder trunk")
     return compute_dtype, qresnet
 
 
 def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
-                print_freq=1):
+                print_freq=1, verbose=True):
     """One epoch of ``step`` over ``batches`` (baseline.py:305-347,
     attention.py:243-310). ``step(batch)`` runs one train step on a
     batch, a dict of numpy arrays (the ``DataLoader``'s, or made in
     memory), and returns the loss on the device, not synchronised.
-    Losses are fetched 16 at a time (``LossDrain``) and printed as the
-    JAX drivers print them. Returns the per-batch losses.
+    Losses are fetched 16 at a time (``LossDrain``) and printed, unless
+    not ``verbose``, as the JAX train loops print them. Returns the
+    per-batch losses.
     """
     if num_batches is None:
         num_batches = len(batches)
@@ -317,7 +389,7 @@ def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
         batch_losses.append(loss_val)
         accum_loss.update(loss_val)
         accum_time.update(dt)
-        if batch_idx % print_freq == 0:
+        if verbose and batch_idx % print_freq == 0:
             print("Epoch {}/{}, Batch {}/{}, Loss {:.4f}, Time: {:.4f}".format(
                 epoch + 1, epochs, batch_idx + 1, num_batches,
                 accum_loss.avg(), accum_time.val))
@@ -329,13 +401,23 @@ def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
     return batch_losses
 
 
+def is_lead(mesh):
+    """Whether this process prints and writes checkpoints: global rank 0
+    of a mesh's world, or the only process."""
+    return mesh is None or not dist.is_initialized() or dist.get_rank() == 0
+
+
 def train_epochs(args, loader, step, encoder, decoder, optimizer,
-                 start_epoch, metrics, prepare=None):
+                 start_epoch, metrics, prepare=None, mesh=None):
     """Epochs ``start_epoch`` to ``args.epochs - 1`` of ``step`` over
     ``loader`` (the loader's next batch is prepared on a thread while the
     card computes, and ``prepare(batch)`` runs there too), each followed
     by ``checkpoints/<model_name>_<epoch>.ckpt`` with the per-batch
-    losses of every epoch so far."""
+    losses of every epoch so far. On a ``mesh`` every rank runs the
+    epochs; only global rank 0 prints and writes the checkpoint, after
+    the decoder's vocab shards and their Adam state are gathered, so the
+    file is the one a single device writes."""
+    lead = is_lead(mesh)
     epoch_losses = metrics.get("epoch_losses", [])
     for epoch in range(start_epoch, args.epochs):
         batches = iter(loader)
@@ -343,11 +425,16 @@ def train_epochs(args, loader, step, encoder, decoder, optimizer,
             batches = map(prepare, batches)
         epoch_losses.append(train_epoch(
             step, host_prefetch(batches, size=2), epoch, args.epochs,
-            len(loader), args.print_freq))
-        save_checkpoint(args, epoch, encoder_to_jax(encoder),
-                        decoder_to_jax(decoder), None,
-                        adam_state_to_jax(optimizer, decoder, encoder),
-                        {"epoch_losses": epoch_losses})
+            len(loader), args.print_freq, verbose=lead))
+        if mesh is not None:
+            unshard_decoder(decoder, mesh, optimizer)
+        if lead:
+            save_checkpoint(args, epoch, encoder_to_jax(encoder),
+                            decoder_to_jax(decoder), None,
+                            adam_state_to_jax(optimizer, decoder, encoder),
+                            {"epoch_losses": epoch_losses})
+        if mesh is not None:
+            shard_decoder(decoder, mesh, optimizer)
 
 
 def as_device_tensor(array, device):

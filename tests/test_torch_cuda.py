@@ -30,7 +30,11 @@ K1 nor K2. BERT: the aligned caption embeddings in f32 within 1e-5 of the
 CPU's largest value; the W8A8 form with the CPU's int8 inputs shared:
 every product's int32 sums equal, its inputs and output within 1e-5, and
 free-running its output within 1e-3; one --use_bert step within the f32
-step's limits.
+step's limits. The multi-chip path: three f32 steps on a one-rank NCCL
+mesh equal, to the bit, the same steps without a mesh (the mesh path
+keeps the same operations); vocab-parallel gradients on CUDA tensors
+through two gloo ranks sharing the card within 1e-6 of the unsplit
+decoder's.
 """
 
 import contextlib
@@ -974,3 +978,119 @@ def test_use_bert_train_step_on_card_matches_cpu(card):
         assert grads.pop(SCORE_BIAS).abs().max() < 1e-6
     errs = relative_errors(*same)
     assert max(errs.values()) <= 1e-5, errs
+
+
+# ---------------------------------------------------------------------------
+# The multi-chip path on the card
+# ---------------------------------------------------------------------------
+
+def _small_trees(family, seed=0):
+    """numpy trees of a small model of ``family`` (ResNet (1, 1, 1, 1) of
+    widths (4, 8, 8, 16), V = 40) and three batches of 8 images of 64x64
+    with seeded captions of 8 tokens."""
+    from icd_tpu_torch.params import decoder_to_jax, encoder_to_jax
+
+    gen = torch.Generator().manual_seed(seed)
+    resnet = init_resnet(gen, (1, 1, 1, 1), (4, 8, 8, 16), device="cpu")
+    if family == "baseline":
+        params = BaselineDecoderParams()
+        params.vocab_size, params.embed_size, params.hidden_size = 40, 16, 12
+        embed = torch.nn.Linear(64, 16)
+        with torch.no_grad():
+            for p in embed.parameters():
+                p.copy_(torch.rand(p.shape, generator=gen) * 0.25 - 0.125)
+        encoder = Encoder(resnet, embed)
+        decoder = init_baseline_decoder(gen, params, device="cpu")
+    else:
+        params = AttentionDecoderParams()
+        params.attention_dim, params.decoder_dim = 10, 12
+        params.embed_size, params.vocab = 16, range(40)
+        encoder = EncoderAttention(resnet)
+        decoder = init_attention_decoder(gen, params, encoder_dim=64,
+                                         device="cpu")
+    batches = [dict(
+        imgs=torch.randint(0, 256, (8, 64, 64, 3), generator=gen,
+                           dtype=torch.uint8).numpy(),
+        captions=seeded_captions(gen, 8, 8, 40, 37, 38,
+                                 min_words=1).long().numpy())
+        for _ in range(3)]
+    return encoder_to_jax(encoder), decoder_to_jax(decoder), batches
+
+
+@pytest.mark.parametrize("family", ["baseline", "attention"])
+def test_one_rank_nccl_mesh_steps_are_bit_equal_to_no_mesh(card, family):
+    """Three f32 steps on a (1, 1) mesh of a one-rank NCCL group (every
+    collective of the mesh path runs, over one rank) against the same
+    steps with no mesh in this process: the mesh path keeps the same
+    operations (BN statistics and loss counts are sums divided by the
+    count either way), so losses, the updated decoder, Adam's moments
+    and the BN statistics are equal to the bit."""
+    from icd_tpu_torch.params import decoder_from_jax, encoder_from_jax
+    from icd_tpu_torch.parallel import run_ranks
+    from icd_tpu_torch.testing import (f32_products, mesh_train,
+                                       run_mesh_cases)
+
+    enc, dec, batches = _small_trees(family)
+    case = dict(kind="train", name="nccl1", n_data=1, n_model=1,
+                family=family, encoder=enc, decoder=dec, batches=batches,
+                options=dict(lr=1e-3))
+    got = run_ranks(run_mesh_cases, 1, args=([case], "cuda"),
+                    backend="nccl", device="cuda:0", limit_s=300)[0]["nccl1"]
+    f32_products()
+    want = mesh_train(None, family, encoder_from_jax(enc).to(card),
+                      decoder_from_jax(dec).to(card), batches, lr=1e-3)
+    assert got["losses"] == want["losses"]
+    for key in ("decoder", "adam", "bn"):
+        got_leaves = _leaves(got[key])
+        want_leaves = _leaves(want[key])
+        assert got_leaves.keys() == want_leaves.keys()
+        for name, value in want_leaves.items():
+            assert (got_leaves[name] == value).all(), (key, name)
+
+
+def _leaves(tree, prefix=()):
+    """{path: array} of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(_leaves(value, prefix + (key,)))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("family", ["baseline", "attention"])
+def test_vocab_parallel_gradients_on_cuda_tensors(card, family):
+    """The decoder split over a (1, 2) mesh of two gloo ranks sharing the
+    card (CUDA tensors through gloo's all_reduce and list all_gather), a
+    loss replicated on both: every gradient, the shards' gathered,
+    within 1e-6 of the unsplit decoder's largest value on the card (the
+    attention score bias, zero in exact arithmetic, left out)."""
+    from icd_tpu_torch.params import decoder_from_jax
+    from icd_tpu_torch.parallel import run_ranks
+    from icd_tpu_torch.testing import (f32_products, run_mesh_cases,
+                                       vocab_grads)
+
+    _, dec, batches = _small_trees(family, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    inputs = {"captions": batches[0]["captions"]}
+    if family == "baseline":
+        inputs["feats"] = torch.randn(8, 16, generator=gen).numpy()
+    else:
+        inputs["grid"] = torch.randn(8, 2, 2, 64, generator=gen).numpy()
+    case = dict(kind="vocab_grads", name="vocab", n_data=1, n_model=2,
+                family=family, decoder=dec, inputs=inputs)
+    got = run_ranks(run_mesh_cases, 2, args=([case], "cuda"),
+                    backend="gloo", device="cuda:0", limit_s=300)
+    f32_products()
+    want = vocab_grads(decoder_from_jax(dec).to(card), family,
+                       {k: torch.from_numpy(v).to(card)
+                        for k, v in inputs.items()})
+    for rank in got:
+        assert rank["vocab"]["loss"] == pytest.approx(want["loss"], rel=1e-6)
+        got_leaves = _leaves(rank["vocab"]["grads"])
+        for name, value in _leaves(want["grads"]).items():
+            if name == ("attention", "full_att", "b"):
+                continue
+            scale = max(float(abs(value).max()), 1e-30)
+            err = float(abs(got_leaves[name] - value).max())
+            assert err <= 1e-6 * scale, (name, err, scale)

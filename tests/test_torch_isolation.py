@@ -41,7 +41,9 @@ def test_package_imports_no_jax_and_no_icd_tpu():
     "icd_tpu_torch.train", "icd_tpu_torch.eval", "icd_tpu_torch.init",
     "icd_tpu_torch.training.attention", "icd_tpu_torch.metric",
     "icd_tpu_torch.models.bert", "icd_tpu_torch.models.bert_tokenize",
-    "icd_tpu_torch.models.bert_load", "icd_tpu_torch.models.bert_embed"])
+    "icd_tpu_torch.models.bert_load", "icd_tpu_torch.models.bert_embed",
+    "icd_tpu_torch.parallel.mesh", "icd_tpu_torch.parallel.vocab",
+    "icd_tpu_torch.parallel.dryrun"])
 def test_training_modules_import_no_jax_and_no_icd_tpu(module):
     code = ("import sys, {}; print(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu', "

@@ -3,9 +3,10 @@
 int8 encoder) and greedy decoding (float and W8A8 decoder) of the
 attention model, greedy decoding of the baseline model, the bench
 (``python -m icd_tpu_torch.bench``), training and teacher-forced
-evaluation of both models (f32, --amp, --int8_encoder), and the
+evaluation of both models (f32, --amp, --int8_encoder), the
 attention model's --use_bert training and eval with bert-base caption
-embeddings.
+embeddings, the multi-chip path, and the reference's .pth.tar /
+resnet101.pth artifacts and the training data path's aids.
 
     python3 chip_smoke.py
 
@@ -222,6 +223,48 @@ Phases, one line of output each:
                version; in f32 the gathered greedy tokens equal to one
                card's batch of 64); wall seconds of four ranks sharing
                one card, a correctness run, not a scaling figure.
+29. pth_artifacts  the reference's artifacts at full width: the attention
+               and baseline models of the phases above written as the
+               port's .ckpt, exported by ``python -m
+               icd_tpu_torch.export_reference`` to whole-module .pth.tar
+               files pickled from the reference skeleton
+               (testing.write_reference_skeleton, under build/), and the
+               trunk as a torchvision-named models/resnet101.pth; each
+               .pth.tar loaded back (load_checkpoint: the restricted
+               unpickler and convert) to trees equal to the .ckpt's,
+               exported again and reloaded equal; the train entry's model
+               building from scratch with resnet101.pth present (its trunk
+               the file's) and from --checkpoint x.pth.tar, one f32 step
+               each at batch 32, caption length 25; batch-64 bf16 captions
+               of the loaded model through the per-step beam of
+               gen_captions (K1, its first call against its plain version)
+               and through beam_eval's --fused captioner over 130 images
+               (K2, one launch a batch), equal to the .ckpt's; K2 against
+               its plain version on the loaded model in f32 (batch 8); the
+               write, export, load and reload seconds and the files' bytes;
+30. device_image_cache  ICD_TPU_DEVICE_IMAGE_CACHE=12 at COCO-2014 train's
+               size (82,783 distinct 224x224x3 uint8 images: the buffer's
+               bytes and the peak memory), train_f32's cell for 40 steps
+               whose 256 image ids repeat 5 times each, as COCO's captions
+               do (pixels made on the host from each id's seed): losses
+               equal to the bit to the direct path's (both through the
+               train loop's staging), hits and misses, median step ms of
+               each; then a budget of 3 batches, which evicts while the
+               producer runs two batches ahead, equal to the bit too;
+31. prefetch_async_ckpt  20 steps of train_f32's cell fed three ways, in
+               turns and again in reverse: each batch shipped by the step
+               (sync), read on a thread and shipped by the step
+               (host_thread, the loop before device_prefetch) and staged by device_prefetch
+               (side stream, producer thread): losses equal to the bit;
+               in every run a checkpoint after step 10 while training goes
+               on, written synchronously or (device_prefetch's first run)
+               by the ICD_TPU_CKPT_ASYNC writer, every file's trees and
+               Adam state equal; the median step ms before the save, the
+               save call's ms, the next step's and the median after;
+32. profile_train  a 4-step train_epochs run under ICD_TPU_PROFILE: the
+               Chrome trace exists and holds CUDA kernels and one
+               train_step span a step and a checkpoint span; its bytes and
+               top kernels. None of 30-32 launches K1 or K2 (checked).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must have launched its kernels, and the baseline,
@@ -1728,7 +1771,9 @@ def attention_trainer(models, decoder_lr, compute_dtype=None):
     optimizer = make_optimizer(enc_params, dec_params, 1e-4, decoder_lr)
     step = make_train_step(enc, dec, optimizer, 1.0, 0.5, 5.0, compute_dtype)
     dropout_gen = torch.Generator("cuda").manual_seed(1)
-    return batch_step(step, "cuda", dropout_gen), enc, dec
+    run = batch_step(step, "cuda", dropout_gen)
+    run.optimizer = optimizer
+    return run, enc, dec
 
 
 def phase_train_f32(models, gen, results):
@@ -3186,6 +3231,541 @@ def phase_mesh_gloo_shared(results):
     results["fused_beam"]["launches_by_path"][phase] = 0
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the reference's artifacts and the training data path's aids
+# ---------------------------------------------------------------------------
+
+SLICE11_ROOT = os.path.join(BUILD_DIR, "slice11")
+COCO_TRAIN_IMAGES = 82783  # COCO-2014 train (reference: dataset.py:73-75)
+CACHE_STEPS, CACHE_POOL = 40, 256  # 1,280 samples of 256 images, ~5 each
+
+
+@contextlib.contextmanager
+def slice11_root():
+    """An ICD_TPU_ROOT under build/ with checkpoints/, models/ and the
+    smoke's vocabulary (V = 10,000: <pad> first, then <start>, <end>,
+    <unk> at START_ID, END_ID and the last id) in pkldata/; the
+    environment variables the phases set are restored after."""
+    import shutil
+
+    from icd_tpu_torch.vocabulary import Vocabulary, save_vocab
+
+    shutil.rmtree(SLICE11_ROOT, ignore_errors=True)
+    for sub in ("checkpoints", "models", "pkldata"):
+        os.makedirs(os.path.join(SLICE11_ROOT, sub))
+    saved = {k: os.environ.get(k) for k in (
+        "ICD_TPU_ROOT", "ICD_TPU_DEVICE_IMAGE_CACHE", "ICD_TPU_CKPT_ASYNC",
+        "ICD_TPU_PROFILE")}
+    os.environ["ICD_TPU_ROOT"] = SLICE11_ROOT
+    vocab = Vocabulary()
+    for word in (["<pad>"] + ["w{}".format(i) for i in range(1, START_ID)]
+                 + ["<start>", "<end>", "<unk>"]):
+        vocab.add_word(word)
+    check(len(vocab) == VOCAB and vocab("<start>") == START_ID
+          and vocab("<end>") == END_ID, "slice 11 vocabulary")
+    save_vocab(vocab)
+    try:
+        yield SLICE11_ROOT
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def train_args(model, name, **kw):
+    """The train CLI's arguments (icd_tpu_torch/train.py) at the smoke's
+    widths."""
+    from types import SimpleNamespace
+
+    args = dict(model=model, model_name=name, embed_size=EMBED,
+                decoder_dim=DEC_DIM, attention_dim=ATT_DIM,
+                decoder_dropout=0.5, alpha_c=1.0, grad_clip=5.0,
+                encoder_lr=1e-4, decoder_lr=1e-4, fine_tune_encoder=False,
+                fine_tune_embedding=False, use_glove=False, use_bert=False,
+                checkpoint=None, batch_size=TRAIN_BATCH, epochs=1,
+                print_freq=100, amp=False, int8_encoder=False, workers=0,
+                max_caption_length=-1)
+    args.update(kw)
+    return SimpleNamespace(**args)
+
+
+def array_leaves(tree):
+    """The arrays of a nested dict / list / tuple (optax's state tuples
+    included), in order."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return [x for k in tree for x in array_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in array_leaves(v)]
+    if isinstance(tree, (np.ndarray, np.generic, int, float)):
+        return [np.asarray(tree)]
+    return []
+
+
+def trees_equal(a, b):
+    """Same arrays, bit for bit, in the same order."""
+    import numpy as np
+
+    a, b = array_leaves(a), array_leaves(b)
+    return len(a) == len(b) > 0 and all(
+        x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(a, b))
+
+
+def phase_pth_artifacts(models, base, gen, results):
+    """The reference's artifacts at full width: a torchvision-named
+    ResNet-101 ``models/resnet101.pth`` and whole-module ``.pth.tar``
+    checkpoints of both families, pickled by ``python -m
+    icd_tpu_torch.export_reference`` from the reference skeleton
+    (``testing.write_reference_skeleton``) out of the port's own
+    ``.ckpt``; loaded back (``load_checkpoint``) to the same trees; the
+    train entry's model building with resnet101.pth present and from
+    ``--checkpoint x.pth.tar``, one f32 step each at batch 32, caption
+    length 25; batch-64 bf16 captions of the loaded attention model
+    through gen_captions' per-step beam (K1, its first call held
+    against its plain version) and beam_eval's --fused captioner (K2,
+    one launch a batch; K2 held against its plain version on the loaded
+    model in f32) equal to the .ckpt's; and the loaded checkpoint
+    exported again and reloaded to equal trees."""
+    import torch
+
+    from icd_tpu_torch import export_reference
+    from icd_tpu_torch.beam_eval import caption_images
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from icd_tpu_torch.decoding.serve import make_beam_captioner
+    from icd_tpu_torch.export import (export_reference_checkpoint,
+                                      resnet_to_torch_state_dict)
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+    from icd_tpu_torch.ops.fused_beam import beam_search_fused
+    from icd_tpu_torch.params import (decoder_from_jax, decoder_to_jax,
+                                      encoder_from_jax, encoder_to_jax,
+                                      resnet_to_jax)
+    from icd_tpu_torch.testing import write_reference_skeleton
+    from icd_tpu_torch.training import attention
+    from icd_tpu_torch.training.common import make_adam, resume_or_build
+    from icd_tpu_torch.vocabulary import load_vocab
+
+    with slice11_root() as root:
+        ref = write_reference_skeleton(os.path.join(BUILD_DIR,
+                                                    "reference_skeleton"))
+        families = {"attention": models, "baseline": base}
+        trees = {fam: (encoder_to_jax(m[0]), decoder_to_jax(m[1]))
+                 for fam, m in families.items()}
+        seconds = {}
+        t0 = time.perf_counter()
+        pth = os.path.join(root, "models", "resnet101.pth")
+        torch.save(resnet_to_torch_state_dict(trees["attention"][0]["resnet"]),
+                   pth)
+        seconds["write_resnet101_pth"] = time.perf_counter() - t0
+        loaded = {}
+        for fam, (enc, dec) in trees.items():
+            name = "pth_{}".format(fam)
+            save_checkpoint(train_args(fam, name), 0, enc, dec, None, None,
+                            {"epoch_losses": [[1.0]]})
+            out = os.path.join(root, "checkpoints", name + "_0.pth.tar")
+            t0 = time.perf_counter()
+            export_reference.main([name + "_0.ckpt", out,
+                                   "--reference_root", ref])
+            seconds["export_" + fam] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = load_checkpoint(name=name + "_0.pth.tar")
+            seconds["load_" + fam] = time.perf_counter() - t0
+            check(got["config"]["model"] == fam and got["epoch"] == 0,
+                  fam + " .pth.tar config", got["config"], got["epoch"])
+            check(trees_equal(got["encoder"], enc)
+                  and trees_equal(got["decoder"], dec),
+                  fam + " .pth.tar trees equal to the .ckpt's")
+            again = os.path.join(root, "checkpoints", name + "_again.pth.tar")
+            t0 = time.perf_counter()
+            export_reference_checkpoint(got, again, reference_root=ref)
+            seconds["export_again_" + fam] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = load_checkpoint(name=name + "_again.pth.tar",
+                                   verbose=False)
+            seconds["reload_" + fam] = time.perf_counter() - t0
+            check(trees_equal(back["encoder"], got["encoder"])
+                  and trees_equal(back["decoder"], got["decoder"]),
+                  fam + " export -> reload trees equal")
+            loaded[fam] = got
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in [pth] + [
+            os.path.join(root, "checkpoints", "pth_{}_0.pth.tar".format(f))
+            for f in trees]}
+
+        # The train entry's model building (train -> resume_or_build):
+        # from scratch with resnet101.pth present, and --checkpoint
+        # x.pth.tar; one f32 step each.
+        vocab = load_vocab()
+        batch = train_batches(gen, 1, seed=700)[0]
+        steps = {}
+        for label, kw in (("resnet101_pth", {}),
+                          ("checkpoint_pth_tar", dict(
+                              checkpoint="pth_attention_0.pth.tar"))):
+            args = train_args("attention", "pth_train", **kw)
+            first, enc, dec, opt_state, _ = resume_or_build(
+                args, attention.build_attention, vocab, "cuda")
+            check(trees_equal(resnet_to_jax(enc.resnet),
+                              trees["attention"][0]["resnet"]),
+                  label + ": the trunk is the file's")
+            optimizer = make_adam(args, enc, dec, opt_state)
+            step = attention.make_train_step(enc, dec, optimizer, 1.0, 0.0,
+                                             5.0)
+            loss = attention.batch_step(step, "cuda")(batch).item()
+            check(math.isfinite(loss), label + " step loss", loss)
+            steps[label] = dict(first_epoch=first, loss=loss)
+
+        # Captions of the loaded model against the .ckpt's, batch 64 bf16.
+        imgs = uint8_images(IMAGES, seed=11).cuda()
+        ckpt_models = [encoder_from_jax(trees["attention"][0]),
+                       decoder_from_jax(trees["attention"][1])]
+        pth_models = [encoder_from_jax(loaded["attention"]["encoder"]),
+                      decoder_from_jax(loaded["attention"]["decoder"])]
+        tokens = {}
+        for label, (enc, dec) in (("ckpt", ckpt_models), ("pth", pth_models)):
+            captioner = make_beam_captioner(enc, dec, START_ID, END_ID,
+                                            beam_size=BEAMS,
+                                            compute_dtype=torch.bfloat16,
+                                            device="cuda")
+            counters = zero_counters()
+            with k1_first_call() as seen:
+                out = captioner(imgs)
+            torch.cuda.synchronize()
+            k1 = counters[0].launches
+            check(k1 > 0 and k1 == out["steps"] and counters[1].launches == 0,
+                  label + " per-step beam: K1 launches", k1, out["steps"])
+            tokens[label] = out["seq"].cpu()
+            if label == "pth":
+                k1_errs = k1_call_errors(seen)
+                k1_pth = k1
+        check(torch.equal(tokens["ckpt"], tokens["pth"]),
+              ".pth.tar beam tokens equal the .ckpt's")
+        results["fused_attention"]["launches_by_path"][
+            "pth_artifacts/gen_captions"] = k1_pth
+
+        pool = uint8_images(130, seed=12).numpy()
+        img_ids = list(range(1000, 1130))
+        rows = {}
+        for label, (enc, dec) in (("ckpt", ckpt_models), ("pth", pth_models)):
+            captioner = make_beam_captioner(
+                enc, dec, START_ID, END_ID, beam_size=BEAMS,
+                compute_dtype=torch.bfloat16, device="cuda",
+                beam_fn=beam_search_fused)
+            counters = zero_counters()
+            rows[label] = caption_images(
+                captioner, img_ids, lambda ids: pool[[i - 1000 for i in ids]],
+                vocab, IMAGES, log=lambda line: None)
+            torch.cuda.synchronize()
+            k2 = counters[1].launches
+            check(k2 == 3 and counters[0].launches == 0,
+                  label + " beam_eval --fused: K2 launches", k2)
+        check(rows["ckpt"] == rows["pth"],
+              ".pth.tar fused captions equal the .ckpt's")
+        results["fused_beam"]["launches_by_path"][
+            "pth_artifacts/beam_eval_fused"] = k2
+        with torch.no_grad():
+            grid = encoder_attention_forward(pth_models[0].cuda(),
+                                             imgs[:8]).reshape(8, -1, ENC_DIM)
+        _, k2_err, _ = k2_against_plain(pth_models[1].cuda(), grid, BEAMS,
+                                        START_ID, END_ID, 50,
+                                        "pth_artifacts")
+        del pth_models, ckpt_models, enc, dec, optimizer, step
+        torch.cuda.empty_cache()
+    log("pth_artifacts", seconds=seconds, file_bytes=sizes,
+        train_steps=steps, k1_launches=k1_pth, k2_launches_3_batches=k2,
+        k1_first_call_err=dict(ctx=k1_errs[0], alpha=k1_errs[1]),
+        k2_f32_alpha_err_vs_plain=k2_err,
+        captions_equal=len(rows["pth"]), card=card_line())
+
+
+class MemoryLoader:
+    """A loader over in-memory batches, as ``training.common.train_epochs``
+    reads one (``len``, iteration, ``dataset.img_size``)."""
+
+    def __init__(self, batches, dataset=None):
+        from types import SimpleNamespace
+
+        self.batches = batches
+        self.dataset = dataset or SimpleNamespace(img_size=224, img_ids=[])
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter([dict(b) for b in self.batches])
+
+
+def coco_like_batches(gen, seed):
+    """CACHE_STEPS batches of train_f32's cell whose images repeat as
+    COCO's ~5 captions an image make them (CACHE_POOL images, 5 samples
+    each, shuffled), with ``img_ids``; each image made on the host from
+    its id's seed."""
+    import numpy as np
+
+    from icd_tpu_torch.testing import seeded_captions
+
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(COCO_TRAIN_IMAGES, CACHE_POOL, replace=False)
+    order = rng.permutation(np.repeat(ids, CACHE_STEPS * TRAIN_BATCH
+                                      // CACHE_POOL))
+    pixels = {}
+
+    def image(i):
+        if i not in pixels:
+            pixels[i] = np.random.default_rng(int(i)).integers(
+                0, 256, (224, 224, 3), dtype=np.uint8)
+        return pixels[i]
+
+    batches = []
+    for s in range(CACHE_STEPS):
+        rows = [int(i) for i in order[s * TRAIN_BATCH:(s + 1) * TRAIN_BATCH]]
+        batches.append(dict(
+            imgs=np.stack([image(i) for i in rows]), img_ids=rows,
+            captions=seeded_captions(gen, TRAIN_BATCH, TRAIN_LEN, VOCAB,
+                                     START_ID, END_ID).numpy(),
+            padded_lengths=np.full(TRAIN_BATCH, TRAIN_LEN, np.int32)))
+    return batches
+
+
+def timed_steps(run, batches):
+    """``run`` over ``batches`` (an iterator; what the consumer does to
+    get a batch is inside each step's events): (losses, per-step ms)."""
+    import torch
+
+    it = iter(batches)
+    losses, events = [], []
+    while True:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        batch = next(it, None)
+        if batch is None:
+            break
+        losses.append(run(batch))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return (torch.stack(losses).tolist(),
+            [s.elapsed_time(e) for s, e in events])
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_device_image_cache(models, gen, results):
+    """``ICD_TPU_DEVICE_IMAGE_CACHE=12`` at COCO-2014 train's size (82,783
+    distinct images of 224x224x3 uint8 on the card), train_f32's cell
+    (batch 32, caption length 25, V = 10,000, dropout 0.5) for
+    CACHE_STEPS steps whose ids repeat as COCO's captions do: losses
+    equal to the bit to the direct path's on the same batches (both
+    through ``stage_batches``), hits and misses, step ms with and
+    without the cache, the buffer's bytes and the peak memory; then the
+    same with a budget of 3 batches, where slots are evicted while the
+    producer runs two batches ahead."""
+    import copy
+    from types import SimpleNamespace
+
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.data.pipeline import device_image_cache_from_env
+    from icd_tpu_torch.training.common import stage_batches
+
+    batches = coco_like_batches(gen, seed=800)
+    direct_batches = [{k: v for k, v in b.items() if k != "img_ids"}
+                      for b in batches]
+    runs = {}
+    with slice11_root():
+        counters = zero_counters()
+        run, _, _ = attention_trainer(models, 1e-4)
+        losses, ms = timed_steps(run, stage_batches(
+            MemoryLoader(direct_batches), "cuda"))
+        runs["direct"] = dict(losses=losses, median_step_ms=median(ms))
+        for label, gb in (("coco_12gb", "12"), ("three_batches", repr(
+                3 * TRAIN_BATCH * 224 * 224 * 3 / (1 << 30)))):
+            os.environ["ICD_TPU_DEVICE_IMAGE_CACHE"] = gb
+            dataset = SimpleNamespace(img_size=224,
+                                      img_ids=range(COCO_TRAIN_IMAGES))
+            cache = device_image_cache_from_env(dataset, TRAIN_BATCH)
+            check(cache is not None and dataset.return_ids, label + " cache")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            buf = cache.init_buffer("cuda")
+            run, _, _ = attention_trainer(models, 1e-4)
+            losses, ms = timed_steps(run, stage_batches(
+                MemoryLoader(copy.deepcopy(batches)), "cuda",
+                img_cache=cache, buf=buf))
+            torch.cuda.synchronize()
+            check(losses == runs["direct"]["losses"],
+                  label + ": losses equal the direct path's to the bit",
+                  losses[:3], runs["direct"]["losses"][:3])
+            runs[label] = dict(
+                budget_gb=float(gb), capacity_rows=cache.capacity,
+                buffer_bytes=buf.numel() * buf.element_size(),
+                hits=cache.hits, misses=cache.misses,
+                median_step_ms=median(ms),
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+            del buf
+            torch.cuda.empty_cache()
+        check_no_kernel(counters, "device_image_cache", results)
+    coco = runs["coco_12gb"]
+    check(coco["capacity_rows"] == COCO_TRAIN_IMAGES
+          and coco["misses"] == CACHE_POOL
+          and coco["hits"] == CACHE_STEPS * TRAIN_BATCH - CACHE_POOL,
+          "12 GB cache rows, hits and misses", coco)
+    check(runs["three_batches"]["misses"] > CACHE_POOL,
+          "the 3-batch budget evicts", runs["three_batches"])
+    log("device_image_cache", steps=CACHE_STEPS, batch=TRAIN_BATCH,
+        caption_length=TRAIN_LEN, distinct_images=CACHE_POOL,
+        losses_first_last=[runs["direct"]["losses"][0],
+                           runs["direct"]["losses"][-1]],
+        direct_median_step_ms=runs["direct"]["median_step_ms"],
+        coco_12gb=coco, three_batches=runs["three_batches"],
+        card=card_line())
+
+
+def phase_prefetch_async_ckpt(models, gen, results):
+    """TRAIN_BATCHES steps of train_f32's cell fed three ways: each batch
+    shipped by the step (sync), read on a thread and shipped by the step
+    (host_thread, the loop before device_prefetch) and staged by
+    ``device_prefetch`` (a side
+    stream, a producer thread); in every run a checkpoint of the trained
+    state after step 10 while training goes on, written synchronously or
+    by the ``ICD_TPU_CKPT_ASYNC=1`` writer. Runs in turns (and again in
+    reverse): the losses of every run equal to the bit, every file's
+    trees and Adam state equal to the first sync save's; the median step
+    ms before the save (the feeds), the save call's ms, the next step's
+    and the median after (the writers)."""
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.checkpoint import (load_checkpoint, save_checkpoint,
+                                          wait_pending_saves)
+    from icd_tpu_torch.data.pipeline import host_prefetch
+    from icd_tpu_torch.training.common import (checkpoint_snapshot,
+                                               stage_batches)
+
+    batches = train_batches(gen, TRAIN_BATCHES, seed=900)
+    feeds = {
+        "sync": lambda: iter([dict(b) for b in batches]),
+        "host_thread": lambda: host_prefetch(iter([dict(b) for b in batches])),
+        "prefetch": lambda: stage_batches(MemoryLoader(batches), "cuda")}
+    plan = [("sync", False), ("prefetch", True), ("prefetch", False),
+            ("host_thread", False)]
+    runs, save_at = {}, 10
+    with slice11_root():
+        counters = zero_counters()
+        for i, (feed, async_save) in enumerate(plan + plan[::-1]):
+            label = "{}/{}_save{}".format(feed, "async" if async_save
+                                          else "sync", "" if i < 4 else "_2")
+            run, enc, dec = attention_trainer(models, 1e-4)
+            if async_save:
+                os.environ["ICD_TPU_CKPT_ASYNC"] = "1"
+            else:
+                os.environ.pop("ICD_TPU_CKPT_ASYNC", None)
+            losses, events, save_ms = [], [], None
+            for step, batch in enumerate(feeds[feed](), 1):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in "se")
+                start.record()
+                losses.append(run(batch))
+                end.record()
+                events.append((start, end))
+                if step == save_at:
+                    t0 = time.perf_counter()
+                    save_checkpoint(
+                        train_args("attention", "ckpt{}".format(i)), save_at,
+                        None, None, None, None, {},
+                        snapshot=checkpoint_snapshot(enc, dec, run.optimizer))
+                    save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            wait_pending_saves()
+            torch.cuda.synchronize()
+            ms = [s.elapsed_time(e) for s, e in events]
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            saved = load_checkpoint(name="ckpt{}_{}.ckpt".format(i, save_at),
+                                    verbose=False)
+            losses = torch.stack(losses).tolist()
+            if i == 0:
+                first_losses, first_file = losses, saved
+            check(losses == first_losses,
+                  label + ": losses equal the synchronous path's to the bit")
+            for key in ("encoder", "decoder", "decoder_optimizer"):
+                check(trees_equal(saved[key], first_file[key]),
+                      label + ": checkpoint " + key + " equals the sync save's")
+            runs[label] = dict(
+                median_step_ms_before_save=median(ms[:save_at]),
+                save_call_ms=save_ms, step_after_save_ms=ms[save_at],
+                median_step_ms_after_save=median(ms[save_at + 1:]),
+                wait_at_end_ms=wait_ms)
+        os.environ.pop("ICD_TPU_CKPT_ASYNC", None)
+        check_no_kernel(counters, "prefetch_async_ckpt", results)
+    log("prefetch_async_ckpt", steps=TRAIN_BATCHES, batch=TRAIN_BATCH,
+        save_after_step=save_at, **runs, card=card_line())
+
+
+def phase_profile_train(models, gen, results):
+    """A short ``train_epochs`` run (4 steps and its checkpoint) under
+    ``ICD_TPU_PROFILE``: the Chrome trace exists, holds CUDA kernel
+    events and the ``train_step`` and ``checkpoint`` spans; its size and
+    the top device kernels by time."""
+    import shutil
+
+    import torch
+
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.training import attention
+    from icd_tpu_torch.training.common import make_adam, train_epochs
+
+    batches = train_batches(gen, 4, seed=950)
+    out_dir = os.path.join(BUILD_DIR, "profile_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with slice11_root():
+        os.environ["ICD_TPU_PROFILE"] = out_dir
+        args = train_args("attention", "profiled")
+        enc, dec = (copy.deepcopy(m) for m in models)
+        optimizer = make_adam(args, enc, dec, None)
+        step = attention.make_train_step(enc, dec, optimizer, 1.0, 0.5, 5.0)
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        train_epochs(args, MemoryLoader(batches), attention.batch_step(
+            step, "cuda", torch.Generator("cuda").manual_seed(1)), enc, dec,
+            optimizer, 0, {}, device="cuda")
+        seconds = time.perf_counter() - t0
+        check_no_kernel(counters, "profile_train", results)
+    path = os.path.join(out_dir, "train_profiled", "trace.json")
+    check(os.path.exists(path), "profile trace written", path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + e.get("dur", 0)
+    spans = {name: sum(1 for e in events if e.get("name") == name
+                       and e.get("cat") == "user_annotation")
+             for name in ("train_step", "checkpoint")}
+    check(kernels and spans["train_step"] == len(batches)
+          and spans["checkpoint"] >= 1, "trace kernels and spans",
+          len(kernels), spans)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    log("profile_train", steps=len(batches), seconds=seconds,
+        trace_bytes=os.path.getsize(path), kernel_names=len(kernels),
+        spans=spans, top=[dict(name=n[:60], ms=us / 1e3) for n, us in top],
+        card=card_line())
+
+
+
+def slice11(models, gen, results):
+    """The phases of the reference's artifacts and the data path's aids."""
+    phase_pth_artifacts(models, baseline_models(models), gen, results)
+    phase_device_image_cache(models, gen, results)
+    phase_prefetch_async_ckpt(models, gen, results)
+    phase_profile_train(models, gen, results)
+
+
 def main():
     import torch
 
@@ -3234,6 +3814,7 @@ def main():
     phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results)
     phase_mesh_nccl1(models, gen, results)
     phase_mesh_gloo_shared(results)
+    slice11(models, gen, results)
     log("total", seconds=time.perf_counter() - STARTED)
 
     k1 = dict(name="fused_attention", route="cuda",

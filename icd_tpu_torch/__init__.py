@@ -4,7 +4,7 @@ A port of ``icd_tpu`` (JAX on a TPU), which stays beside it as the
 reference every module here is held against. The package imports
 torch and numpy, never jax and nothing of ``icd_tpu``; the host
 modules it needs (``pathconf``, ``vocabulary``, ``data``, ``metric``,
-``eval_func``) are its own copies.
+``eval_func``, ``compat``, ``native/imageio``) are its own copies.
 
 Layout follows ``icd_tpu`` so each module's counterpart is found by
 name. Public functions keep the JAX layouts: NHWC uint8 images in, a

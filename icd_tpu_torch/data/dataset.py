@@ -1,4 +1,4 @@
-"""COCO captioning dataset (copy of ``icd_tpu/data/dataset.py:59-178``).
+"""COCO captioning dataset (copy of ``icd_tpu/data/dataset.py``).
 
 ``COCODataset(mode)`` indexes the split's annotations and keeps the
 reference's caption filter: a caption joins the caption <-> image
@@ -10,8 +10,20 @@ path and every caption of the image (dataset.py:66-71); a caption is
 Images are decoded with PIL and resized to 224 x 224 BILINEAR as uint8
 NHWC, as the JAX package's default loader does. PIL is imported inside
 the decode function only: a machine that runs the card path from
-tensors (``chip_smoke.py``) needs no PIL. The JAX package's speed aids, its
-host image cache and opt-in native libjpeg loader, are not ported.
+tensors (``chip_smoke.py``) needs no PIL.
+
+The JAX package's host-side speed aids, each leaving the pixels (and so
+the losses) as they were:
+ - ``ICD_TPU_IMAGE_CACHE`` (GB; 0 or unset: off): decoded images kept
+   in host memory by id up to that budget, read-only arrays shared
+   across samples (one sample per caption reads each COCO image ~5
+   times an epoch, dataset.py:44-57);
+ - ``ICD_TPU_NATIVE_LOADER=1``: JPEGs decoded by the native libjpeg
+   loader (``native/imageio.py``, built at first use) instead of PIL;
+   its pixels differ from PIL's by less than one level on average, so it
+   is opt-in; where it cannot be built or a decode fails, PIL decodes;
+ - ``return_ids``: train items carry their image id, which the
+   loader's collate puts in ``img_ids`` (``pipeline.DeviceImageCache``).
 """
 
 import os
@@ -35,6 +47,24 @@ def decode_image(path, size=IMG_SIZE):
     return np.asarray(img, dtype=np.uint8)
 
 
+def native_decoder():
+    """The native loader's ``decode_resize_jpeg`` when
+    ``ICD_TPU_NATIVE_LOADER`` is set and its library builds, else None
+    (dataset.py:30-41)."""
+    if not os.environ.get("ICD_TPU_NATIVE_LOADER"):
+        return None
+    from ..native import imageio
+
+    return imageio.decode_resize_jpeg if imageio.available() else None
+
+
+def image_cache_budget():
+    """Bytes of decoded images to keep in host memory, from
+    ``ICD_TPU_IMAGE_CACHE`` (GB; 0 or unset: off) (dataset.py:44)."""
+    return int(float(os.environ.get("ICD_TPU_IMAGE_CACHE", "0") or 0)
+               * (1 << 30))
+
+
 class COCODataset:
     """The caption <-> image index of one split (reference: dataset.py:14)."""
 
@@ -43,6 +73,10 @@ class COCODataset:
         if mode not in ("train", "val"):
             raise ValueError("mode is 'train' or 'val', got {!r}".format(mode))
         self.mode = mode
+        # Train items carry their img_id as a third element when set
+        # (the device image cache's protocol; the reference yields
+        # (img, caption), dataset.py:66-67).
+        self.return_ids = False
         self.vocab = vocab if vocab is not None else load_vocab()
         self.caption_max_len = (caption_max_len if caption_max_len != -1
                                 else float("inf"))
@@ -53,6 +87,10 @@ class COCODataset:
         self.img_ids = list(sorted(self.coco.imgs.keys()))
         self.caption_img_mappings = self._build_caption_img_mappings()
         self._caption_cache = {}
+        self._img_cache = {}
+        self._img_cache_budget = image_cache_budget()
+        self._img_cache_bytes = 0
+        self._native_decode = native_decoder()
 
     def _build_caption_img_mappings(self):
         mappings = []
@@ -86,17 +124,44 @@ class COCODataset:
         return os.path.join(
             self.img_dir, self.coco.loadImgs(img_id)[0]["file_name"])
 
+    def _decode_img(self, img_id):
+        path = self._img_path(img_id)
+        arr = None
+        if self._native_decode is not None and path.lower().endswith(
+                (".jpg", ".jpeg")):
+            with open(path, "rb") as f:
+                arr = self._native_decode(f.read(), self.img_size,
+                                          self.img_size)
+        if arr is None:  # not a JPEG, or the decode failed: PIL
+            arr = decode_image(path, self.img_size)
+        return arr
+
+    def _load_img(self, img_id):
+        """The image's (H, W, 3) uint8 pixels, from the host cache when it
+        holds them (dataset.py:126)."""
+        arr = self._img_cache.get(img_id)
+        if arr is None:
+            arr = self._decode_img(img_id)
+            if self._img_cache_bytes + arr.nbytes <= self._img_cache_budget:
+                arr.flags.writeable = False  # shared across samples
+                # dict operations hold the GIL; a racing duplicate decode
+                # of the loader's threads stores an equal array.
+                self._img_cache[img_id] = arr
+                self._img_cache_bytes += arr.nbytes
+        return arr
+
     def load_image_batch(self, img_ids):
         """Decoded images for the given ids: (N, H, W, 3) uint8."""
-        return np.stack([decode_image(self._img_path(i), self.img_size)
-                         for i in img_ids])
+        return np.stack([self._load_img(i) for i in img_ids])
 
     def __getitem__(self, idx):
         mapping = self.caption_img_mappings[idx]
         img_id = mapping["img_id"]
-        img = decode_image(self._img_path(img_id), self.img_size)
+        img = self._load_img(img_id)
         caption = self._numericalize_caption(mapping["caption"])
         if self.mode == "train":
+            if self.return_ids:
+                return img, caption, img_id
             return img, caption
         all_captions = [self._numericalize_caption(ann["caption"])
                         for ann in self._annotations(img_id)]

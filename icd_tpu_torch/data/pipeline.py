@@ -1,5 +1,4 @@
-"""Batched, padded input pipeline, host side
-(copy of ``icd_tpu/data/pipeline.py:24-182, 373-412``).
+"""Batched, padded input pipeline (port of ``icd_tpu/data/pipeline.py``).
 
 Replaces the reference's ``torch.utils.data.DataLoader`` with
 pad-to-batch-max collate (reference: models/baseline.py:133-149,
@@ -8,8 +7,11 @@ models/attention.py:303-323). Worker parallelism uses a thread pool
 with ``np.random.default_rng(seed).permutation``, so that for the same
 seed the port and ``icd_tpu`` see the same batches in the same order.
 ``to_device`` ships a batch's arrays to the card from pinned memory
-without blocking the host. icd_tpu's ``DeviceImageCache`` and
-``device_prefetch`` are not ported, nor ``snap_eval_batch`` and
+without blocking the host; ``device_prefetch`` does it for the next
+batches on a producer thread and a side stream while the card computes.
+``DeviceImageCache`` (``ICD_TPU_DEVICE_IMAGE_CACHE``) keeps each
+distinct training image on the card once and gathers batches from it
+by index (``cached_batches``). Not ported: ``snap_eval_batch`` and
 ``pad_batch_to``, which keep XLA's eval shapes static: eager PyTorch
 runs the last batch at its own size.
 
@@ -85,6 +87,7 @@ class DataLoader:
 
     def _collate(self, items):
         is_val = len(items[0]) == 4
+        with_ids = len(items[0]) == 3  # train mode + dataset.return_ids
         imgs = np.stack([item[0] for item in items], axis=0)
         captions = [item[1] for item in items]
         max_len = max(len(c) for c in captions)
@@ -98,6 +101,8 @@ class DataLoader:
         if is_val:
             batch["img_paths"] = [item[2] for item in items]
             batch["all_captions"] = [item[3] for item in items]
+        if with_ids:
+            batch["img_ids"] = [item[2] for item in items]
         return batch
 
     def __iter__(self):
@@ -204,3 +209,190 @@ def to_device(array, device):
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+class DeviceImageCache:
+    """The card-resident unique-image cache of the per-caption training
+    loop (pipeline.py:183).
+
+    One sample per caption ships every COCO image ~5 times an epoch
+    (414,113 captions of 82,783 train images, reference:
+    dataset.py:73-75); the cache keeps one uint8 copy of each distinct
+    image in card memory and gathers the batch by index, so an image
+    crosses the host -> card link once. The gathered rows are the same
+    pixels in the same order, so every loss equals the direct path's.
+
+    ``rewrite(batch)`` (a collated train batch with ``img_ids``: the
+    dataset's ``return_ids``) replaces ``imgs`` by
+
+      fresh_imgs  (k, H, W, C) uint8: the images not yet on the card
+      fresh_slots (k,) int64: the buffer rows they go to
+      idx         (B,) int64: each sample's buffer row
+
+    and the step, on the compute stream and in step order, runs
+    ``insert`` then ``gather``. The slots are icd_tpu's: round-robin,
+    never evicting an image of the current batch; the hits and misses
+    count the same. icd_tpu flattens the rows and pads the fresh rows to
+    a power of two with a scratch row for XLA's tiles and static shapes;
+    here the rows are (H, W, C), the fresh rows unpadded and the buffer
+    ``capacity`` rows.
+    """
+
+    def __init__(self, budget_gb, img_shape, batch_size, max_images=None):
+        row_bytes = int(np.prod(img_shape))
+        self.capacity = max(
+            int(batch_size), int(budget_gb * (1 << 30)) // row_bytes)
+        if max_images is not None:
+            # Never more rows than distinct images.
+            self.capacity = max(int(batch_size),
+                                min(self.capacity, int(max_images)))
+        self.img_shape = tuple(img_shape)
+        self.batch_size = int(batch_size)
+        self.slot_of = {}     # img_id -> slot
+        self.slot_owner = {}  # slot -> img_id (round-robin eviction)
+        self.next_slot = 0
+        self.hits = 0
+        self.misses = 0
+
+    def init_buffer(self, device):
+        """The (capacity, H, W, C) uint8 buffer on ``device``."""
+        return torch.zeros((self.capacity,) + self.img_shape,
+                           dtype=torch.uint8, device=device)
+
+    def _assign_slot(self, img_id, batch_ids):
+        """Round-robin slot for a new image, skipping slots whose owner is
+        in the current batch (pipeline.py:245)."""
+        for _ in range(self.capacity + self.batch_size):
+            slot = self.next_slot % self.capacity
+            self.next_slot += 1
+            owner = self.slot_owner.get(slot)
+            if owner is None or owner not in batch_ids:
+                if owner is not None:
+                    del self.slot_of[owner]
+                self.slot_of[img_id] = slot
+                self.slot_owner[slot] = img_id
+                return slot
+        raise RuntimeError("DeviceImageCache: no evictable slot "
+                           "(capacity {} < distinct images in one "
+                           "batch?)".format(self.capacity))
+
+    def rewrite(self, batch):
+        """Split a collated train batch (``imgs`` + ``img_ids``) into the
+        insert + gather form above."""
+        ids = batch.pop("img_ids")
+        imgs = batch.pop("imgs")
+        batch_ids = set(ids)
+        fresh_pos, fresh_slots = [], []
+        for i, img_id in enumerate(ids):
+            if img_id in self.slot_of:
+                self.hits += 1
+                continue
+            fresh_pos.append(i)
+            fresh_slots.append(self._assign_slot(img_id, batch_ids))
+            self.misses += 1
+        batch["fresh_imgs"] = np.ascontiguousarray(imgs[fresh_pos])
+        batch["fresh_slots"] = np.asarray(fresh_slots, np.int64)
+        batch["idx"] = np.asarray([self.slot_of[i] for i in ids], np.int64)
+        return batch
+
+    @staticmethod
+    def insert(buf, fresh_slots, fresh_imgs):
+        """Write the fresh rows into ``buf`` (in place)."""
+        if len(fresh_slots):
+            buf.index_copy_(0, fresh_slots, fresh_imgs)
+        return buf
+
+    @staticmethod
+    def gather(buf, idx):
+        """The batch's (B, H, W, C) images."""
+        return buf.index_select(0, idx)
+
+
+def device_image_cache_from_env(dataset, batch_size):
+    """A ``DeviceImageCache`` from ``ICD_TPU_DEVICE_IMAGE_CACHE`` (GB; 0,
+    unset or malformed: None), sized to at most the dataset's distinct
+    images; it turns on the dataset's ``return_ids`` (pipeline.py:321)."""
+    import os
+
+    try:
+        gb = float(os.environ.get("ICD_TPU_DEVICE_IMAGE_CACHE", "0") or 0)
+    except ValueError:
+        gb = 0.0
+    if gb <= 0:
+        return None
+    dataset.return_ids = True
+    shape = (dataset.img_size, dataset.img_size, 3)
+    return DeviceImageCache(gb, shape, batch_size,
+                            max_images=len(getattr(dataset, "img_ids",
+                                                   []) or []) or None)
+
+
+def cached_batches(batches, img_cache, device, rows=None, size=2):
+    """The cache's counterpart of ``device_prefetch`` (pipeline.py:339):
+    on the producer thread each collated batch (with ``img_ids``) is
+    rewritten (``img_cache.rewrite``), ``rows(batch)`` picks the rows of
+    the per-sample keys (a mesh rank's; the fresh rows stay whole, every
+    rank keeps the whole buffer), and the arrays go to ``device``. Only
+    the copies run ahead: the caller inserts and gathers on its stream,
+    in step order, so a slot that a later batch reuses is overwritten
+    after this batch's gather."""
+    def gen():
+        for batch in batches:
+            batch = img_cache.rewrite(batch)
+            if rows is not None:
+                batch = rows(batch)
+            yield batch
+
+    return device_prefetch(gen(), device, size=size)
+
+
+def _stage(batch, device):
+    """``batch`` with its arrays and tensors on ``device``: a dict of
+    the new tensors, and the list of those that were copied."""
+    out, copied = Batch(), []
+    for key, value in batch.items():
+        if isinstance(value, np.ndarray):
+            value = to_device(value, device)
+            copied.append(value)
+        elif isinstance(value, torch.Tensor) and value.device != device:
+            value = value.to(device, non_blocking=True)
+            copied.append(value)
+        out[key] = value
+    return out, copied
+
+
+def device_prefetch(iterator, device, size=2):
+    """Ship the next batches to ``device`` while the current step
+    computes (pipeline.py:414): a producer thread runs ``iterator`` and
+    copies each batch's numpy arrays (and tensors of another device) to
+    ``device``, on the card from pinned memory on a side stream; at
+    most ``size`` batches wait in the queue. Before handing a batch out,
+    the consumer's current stream waits for its copies (an event), and
+    each copied tensor is marked used on that stream
+    (``record_stream``), so the caching allocator does not reuse its
+    memory while the step still reads it. Other values pass unchanged.
+    A consumer that stops early unblocks and drains the producer."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    side = torch.cuda.Stream(device) if cuda else None
+
+    def staged():
+        for batch in iterator:
+            if not cuda:
+                yield _stage(batch, device)[0], None, ()
+                continue
+            with torch.cuda.stream(side):
+                out, copied = _stage(batch, device)
+                event = torch.cuda.Event()
+                event.record(side)
+            yield out, event, copied
+
+    for batch, event, copied in host_prefetch(staged(), size=size):
+        if event is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(event)
+            for t in copied:
+                t.record_stream(stream)
+        yield batch

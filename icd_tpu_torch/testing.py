@@ -544,9 +544,47 @@ def _ckpt_case(mesh, case, device):
     return dict(first=first, resumed=resumed)
 
 
+def _cached_case(mesh, case, device):
+    """The train loop's staging (``training.common.stage_batches``) of
+    ``case["batches"]`` (with ``img_ids``) into baseline steps on the
+    mesh, without and with the device image cache (a budget of
+    ``case["budget_gb"]``; each rank keeps the whole buffer and gathers
+    its own rows of ``idx``): the global losses of each run and the
+    cache's hits and misses."""
+    from types import SimpleNamespace
+
+    from .data.pipeline import DeviceImageCache
+    from .training import baseline
+    from .training.common import make_adam, stage_batches
+
+    out = {}
+    for label in ("direct", "cached"):
+        encoder, decoder, _ = _case_models(case, device)
+        args = SimpleNamespace(encoder_lr=1e-3, decoder_lr=1e-3,
+                               use_bert=False, fine_tune_embedding=True)
+        optimizer = make_adam(args, encoder, decoder, None, mesh=mesh)
+        run = baseline.batch_step(baseline.make_train_step(
+            encoder, decoder, optimizer, 0, 5.0, mesh=mesh), device, mesh)
+        cache = buf = None
+        batches = [dict(b) for b in case["batches"]]
+        if label == "cached":
+            cache = DeviceImageCache(case["budget_gb"],
+                                     batches[0]["imgs"].shape[1:],
+                                     len(batches[0]["captions"]))
+            buf = cache.init_buffer(device)
+        else:
+            for b in batches:
+                b.pop("img_ids")
+        out[label] = [float(run(b)) for b in stage_batches(
+            batches, device, mesh, img_cache=cache, buf=buf)]
+        if cache is not None:
+            out["hits"], out["misses"] = cache.hits, cache.misses
+    return out
+
+
 MESH_CASES = {"train": _train_case, "bn": _bn_case, "ckpt": _ckpt_case,
               "vocab_grads": _vocab_grads_case,
-              "captioners": _captioner_case}
+              "captioners": _captioner_case, "cached": _cached_case}
 
 
 def run_mesh_cases(rank, world, cases, device="cpu"):
@@ -566,3 +604,238 @@ def run_mesh_cases(rank, world, cases, device="cpu"):
         out[case["name"]] = (None if mesh.coords is None else
                              MESH_CASES[case["kind"]](mesh, case, device))
     return out
+
+
+# ---------------------------------------------------------------------------
+# A skeleton of the reference's classes, for the .pth.tar paths
+# ---------------------------------------------------------------------------
+
+# The reference repository's module paths, parameter names and the
+# constructors that ``export.export_reference_checkpoint`` calls
+# (models/encoder.py, models/baseline.py, models/attention.py,
+# vocabulary.py): enough to build and pickle whole-module checkpoints
+# as the reference's ``save_checkpoint`` writes them, nothing more.
+_SKELETON = {
+    "models/__init__.py": "",
+    "models/encoder.py": '''
+import torch.nn as nn
+import torchvision
+
+
+def _load_resnet101_model():
+    return torchvision.models.resnet101(pretrained=False)
+
+
+class Encoder(nn.Module):
+    def __init__(self, embed_size):
+        super().__init__()
+        resnet = _load_resnet101_model()
+        self.resnet = nn.Sequential(*list(resnet.children())[:-1])
+        self.embed = nn.Linear(resnet.fc.in_features, embed_size)
+
+
+class EncoderAttention(nn.Module):
+    def __init__(self):
+        super().__init__()
+        resnet = _load_resnet101_model()
+        self.resnet = nn.Sequential(*list(resnet.children())[:-2])
+        self.adaptive_pool = nn.AdaptiveAvgPool2d((14, 14))
+''',
+    "models/baseline.py": '''
+import torch.nn as nn
+
+
+class BaselineDecoderParams:
+    vocab_size = None
+    embed_size = 512
+    hidden_size = 512
+    num_layers = 1
+    max_seq_length = 20
+
+
+class BaselineDecoder(nn.Module):
+    def __init__(self, params):
+        super().__init__()
+        self.embedding = nn.Embedding(params.vocab_size, params.embed_size)
+        self.lstm = nn.LSTM(params.embed_size, params.hidden_size,
+                            params.num_layers, batch_first=True)
+        self.linear = nn.Linear(params.hidden_size, params.vocab_size)
+        self.max_seq_length = params.max_seq_length
+''',
+    "models/attention.py": '''
+import torch.nn as nn
+
+from vocabulary import Vocabulary
+
+
+class AttentionDecoderParams:
+    attention_dim = 512
+    embed_size = 512
+    decoder_dim = 512
+    encoder_dim = {encoder_dim}
+    dropout = 0.5
+    use_bert = False
+    vocab = None
+
+
+class Attention(nn.Module):
+    def __init__(self, encoder_dim, decoder_dim, attention_dim):
+        super().__init__()
+        self.enc_att = nn.Linear(encoder_dim, attention_dim)
+        self.dec_att = nn.Linear(decoder_dim, attention_dim)
+        self.full_att = nn.Linear(attention_dim, 1)
+        self.relu = nn.ReLU()
+        self.softmax = nn.Softmax(dim=1)
+
+
+class AttentionDecoder(nn.Module):
+    def __init__(self, device, params):
+        super().__init__()
+        assert isinstance(params.vocab, Vocabulary)
+        self.device = device
+        self.vocab = params.vocab
+        self.vocab_size = len(params.vocab)
+        self.encoder_dim = params.encoder_dim
+        self.attention_dim = params.attention_dim
+        self.embed_size = params.embed_size
+        self.decoder_dim = params.decoder_dim
+        self.use_bert = params.use_bert
+        if self.use_bert:
+            from pytorch_pretrained_bert import BertModel, BertTokenizer
+
+            self.bert_model = BertModel.from_pretrained("bert-base-uncased")
+            self.tokenizer = BertTokenizer.from_pretrained(
+                "bert-base-uncased")
+            for p in self.bert_model.parameters():
+                p.requires_grad = False
+        self.attention = Attention(params.encoder_dim, params.decoder_dim,
+                                   params.attention_dim)
+        self.embedding = nn.Embedding(self.vocab_size, params.embed_size)
+        self.dropout = nn.Dropout(p=params.dropout)
+        self.decode_step = nn.LSTMCell(params.embed_size + params.encoder_dim,
+                                       params.decoder_dim, bias=True)
+        self.h_lin = nn.Linear(params.encoder_dim, params.decoder_dim)
+        self.c_lin = nn.Linear(params.encoder_dim, params.decoder_dim)
+        self.f_beta = nn.Linear(params.decoder_dim, params.encoder_dim)
+        self.sigmoid = nn.Sigmoid()
+        self.fc = nn.Linear(params.decoder_dim, self.vocab_size)
+''',
+    "vocabulary.py": '''
+PAD_TOKEN = "<pad>"
+START_TOKEN = "<start>"
+END_TOKEN = "<end>"
+UNK_TOKEN = "<unk>"
+
+
+class Vocabulary:
+    def __init__(self):
+        self.w2i = {{}}
+        self.i2w = {{}}
+        self.idx = 0
+
+    def add_word(self, word):
+        if word not in self.w2i:
+            self.w2i[word] = self.idx
+            self.i2w[self.idx] = word
+            self.idx += 1
+
+    def __call__(self, word):
+        if word not in self.w2i:
+            return self.w2i[UNK_TOKEN]
+        return self.w2i[word]
+
+    def __len__(self):
+        return len(self.w2i)
+''',
+}
+
+# A torchvision whose resnet101() is a small ResNet (the reference's
+# layout, torchvision's child order): the CPU tests' stand-in for
+# ResNet-101, found on the skeleton's root before any other torchvision.
+_MINI_TORCHVISION = '''
+import torch.nn as nn
+
+DEPTHS = {depths}
+WIDTHS = {widths}
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = downsample
+        self.stride = stride
+
+
+class ResNet(nn.Module):
+    def __init__(self, block, layers, widths=WIDTHS, num_classes=1000):
+        super().__init__()
+        self.inplanes = widths[0]
+        self.conv1 = nn.Conv2d(3, widths[0], 7, stride=2, padding=3,
+                               bias=False)
+        self.bn1 = nn.BatchNorm2d(widths[0])
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        for i, (depth, planes) in enumerate(zip(layers, widths)):
+            setattr(self, "layer{{}}".format(i + 1), self._make_layer(
+                block, planes, depth, 1 if i == 0 else 2))
+        self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
+        self.fc = nn.Linear(widths[-1] * 4, num_classes)
+
+    def _make_layer(self, block, planes, depth, stride):
+        downsample = None
+        if stride != 1 or self.inplanes != planes * 4:
+            downsample = nn.Sequential(
+                nn.Conv2d(self.inplanes, planes * 4, 1, stride=stride,
+                          bias=False),
+                nn.BatchNorm2d(planes * 4))
+        blocks = [block(self.inplanes, planes, stride, downsample)]
+        self.inplanes = planes * 4
+        for _ in range(1, depth):
+            blocks.append(block(self.inplanes, planes))
+        return nn.Sequential(*blocks)
+
+
+def resnet101(pretrained=False):
+    return ResNet(Bottleneck, DEPTHS)
+'''
+
+
+def write_reference_skeleton(root, depths=None, widths=None):
+    """Write the skeleton of the reference's classes under ``root``, a
+    directory to use as a ``--reference_root``. With ``depths`` and
+    ``widths`` it also writes a ``torchvision`` package there whose
+    ``resnet101()`` builds a ResNet of those, and the attention
+    decoder's default ``encoder_dim`` is that trunk's (``widths[-1] *
+    4``); else the trunk is torchvision's (or ``compat``'s stand-in's)
+    ResNet-101 and ``encoder_dim`` 2048. Returns ``root``."""
+    import os
+
+    files = dict(_SKELETON)
+    encoder_dim = 2048
+    if depths is not None:
+        files["torchvision/__init__.py"] = "from . import models\n"
+        files["torchvision/models/__init__.py"] = (
+            "from . import resnet\nfrom .resnet import ResNet, resnet101\n")
+        files["torchvision/models/resnet.py"] = _MINI_TORCHVISION.format(
+            depths=tuple(depths), widths=tuple(widths))
+        encoder_dim = widths[-1] * 4
+    for rel, text in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if rel == "models/attention.py":
+            text = text.format(encoder_dim=encoder_dim)
+        elif rel == "vocabulary.py":
+            text = text.format()
+        with open(path, "w") as f:
+            f.write(text.lstrip("\n"))
+    return root

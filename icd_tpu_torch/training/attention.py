@@ -34,11 +34,10 @@ from the padded rows; eval from each caption without its padding.
 import os
 import time
 
-import numpy as np
 import torch
 
 from ..data.dataset import COCODataset
-from ..data.pipeline import DataLoader, eval_workers, to_device
+from ..data.pipeline import DataLoader, eval_workers
 from ..device import resolve_device, use_exact_f32
 from ..metric import AccumulatingMetric, get_eval_score, probe_meteor
 from ..models.attention import (AttentionDecoderParams,
@@ -52,18 +51,20 @@ from ..models.encoder import (encoder_attention_forward,
 from ..models.resnet import merge_bn_stats
 from ..parallel.mesh import batch_layout, shard_batch
 from ..params import decoder_from_jax, encoder_from_jax
-from ..pathconf import _root
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
 from .common import (as_device_tensor, cast_floating, clip_gradients,
                      cross_entropy, doubly_stochastic_regularizer,
-                     eval_batches, is_lead, make_adam, not_ported,
-                     reduce_gradients, resume_or_build, token_nll,
-                     train_epochs, train_precision)
+                     eval_batches, is_lead, make_adam,
+                     pretrained_resnet_or_none, reduce_gradients,
+                     resume_or_build, step_batch, token_nll, train_epochs,
+                     train_precision)
 
 
 def build_attention(args, vocab, generator, device=None):
     """Random-init encoder and decoder from ``generator`` (CPU) per the
-    CLI's args (attention.py:50)."""
+    CLI's args (attention.py:50); a ``models/resnet101.pth`` under
+    ``ICD_TPU_ROOT`` replaces the random backbone
+    (``pretrained_resnet_or_none``)."""
     params = AttentionDecoderParams()
     params.attention_dim = args.attention_dim
     params.decoder_dim = args.decoder_dim
@@ -72,11 +73,10 @@ def build_attention(args, vocab, generator, device=None):
     params.vocab = vocab
     params.use_bert = args.use_bert
 
-    if os.path.exists(os.path.join(_root(), "models", "resnet101.pth")):
-        # icd_tpu would load it (training/baseline.py:59-72).
-        raise not_ported("loading models/resnet101.pth",
-                         ".pth.tar and .pth conversion")
     encoder = init_encoder_attention(generator, device=device)
+    pretrained = pretrained_resnet_or_none(device)
+    if pretrained is not None:
+        encoder.resnet = pretrained
     decoder = init_attention_decoder(generator, params, device=device)
     if args.use_glove:
         from ..data.embed import load_glove_vectors
@@ -167,26 +167,22 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
 
 
 def batch_step(step, device, generator=None, mesh=None):
-    """``step`` as ``common.train_epoch`` calls it, on a loader batch:
-    this rank's rows of it (all of them without a ``mesh``) go to
-    ``device``, and the decode lengths are the padded length - 1
-    (reference quirk: lengths measured after padding, a uniform decode
-    window covering pads, attention.py:311-313). A batch's
-    ``embeddings`` (``--use_bert``, already the rank's rows: ``with_bert``)
-    go along."""
+    """``step`` as ``common.train_epoch`` calls it, on a loader batch or
+    a staged one (``common.stage_batches``): this rank's rows of it (all
+    of them without a ``mesh``) on ``device``, and the decode lengths
+    the padded length - 1 (reference quirk: lengths measured after
+    padding, a uniform decode window covering pads,
+    attention.py:311-313). A batch's ``embeddings`` (``--use_bert``,
+    already the rank's rows: ``with_bert``) go along."""
     def run(batch):
-        n = len(batch["captions"])
+        batch, n = step_batch(batch, mesh)
         embeddings = batch.get("embeddings")
         if embeddings is not None:
             embeddings = as_device_tensor(embeddings, device)
-        if mesh is not None:
-            batch = shard_batch({key: batch[key] for key in (
-                "imgs", "captions", "padded_lengths")}, mesh)
-        decode_lengths = np.asarray(batch["padded_lengths"]) - 1
-        return step(to_device(batch["imgs"], device),
-                    to_device(batch["captions"], device),
-                    to_device(decode_lengths, device), generator, embeddings,
-                    n)
+        return step(as_device_tensor(batch["imgs"], device),
+                    as_device_tensor(batch["captions"], device),
+                    as_device_tensor(batch["padded_lengths"] - 1, device),
+                    generator, embeddings, n)
     return run
 
 
@@ -234,7 +230,7 @@ def train(args, device=None, mesh=None):
     generator = torch.Generator(device).manual_seed(1)
     train_epochs(args, loader, batch_step(step, device, generator, mesh),
                  encoder, decoder, optimizer, start_epoch, metrics, prepare,
-                 mesh)
+                 mesh, device)
     if is_lead(mesh):
         print("Model {} finished training for {} epochs.".format(
             args.model_name, args.epochs))

@@ -30,13 +30,12 @@ them (``training/common.py``). No kernel of ``ops/`` runs here: the
 JAX train and eval steps are plain XLA.
 """
 
-import os
 import time
 
 import torch
 
 from ..data.dataset import COCODataset
-from ..data.pipeline import DataLoader, eval_workers, to_device
+from ..data.pipeline import DataLoader, eval_workers
 from ..device import resolve_device, use_exact_f32
 from ..metric import AccumulatingMetric, get_eval_score, probe_meteor
 from ..models.baseline import (BaselineDecoderParams,
@@ -46,29 +45,30 @@ from ..models.baseline import (BaselineDecoderParams,
 from ..models.encoder import (encoder_forward, encoder_forward_int8,
                               init_encoder)
 from ..models.resnet import merge_bn_stats
-from ..parallel.mesh import batch_layout, shard_batch
+from ..parallel.mesh import batch_layout
 from ..params import decoder_from_jax, encoder_from_jax
-from ..pathconf import _root
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
-from .common import (cast_floating, clip_gradients, eval_batches, is_lead,
-                     make_adam, not_ported, pad_cross_entropy,
-                     reduce_gradients, resume_or_build, token_nll,
-                     train_epochs, train_precision)
+from .common import (as_device_tensor, cast_floating, clip_gradients,
+                     eval_batches, is_lead, make_adam, pad_cross_entropy,
+                     pretrained_resnet_or_none, reduce_gradients,
+                     resume_or_build, step_batch, token_nll, train_epochs,
+                     train_precision)
 
 
 def build_baseline(args, vocab, generator, device=None):
     """Random-init encoder (ResNet-101 and the ``embed`` head) and decoder
-    from ``generator`` (CPU) per the CLI's args (baseline.py:75)."""
+    from ``generator`` (CPU) per the CLI's args (baseline.py:75); a
+    ``models/resnet101.pth`` under ``ICD_TPU_ROOT`` replaces the random
+    backbone (``pretrained_resnet_or_none``)."""
     params = BaselineDecoderParams()
     params.embed_size = args.embed_size
     params.hidden_size = args.decoder_dim
     params.vocab_size = len(vocab)
 
-    if os.path.exists(os.path.join(_root(), "models", "resnet101.pth")):
-        # icd_tpu would load it (training/baseline.py:59-72).
-        raise not_ported("loading models/resnet101.pth",
-                         ".pth.tar and .pth conversion")
     encoder = init_encoder(generator, args.embed_size, device=device)
+    pretrained = pretrained_resnet_or_none(device)
+    if pretrained is not None:
+        encoder.resnet = pretrained
     decoder = init_baseline_decoder(generator, params, device=device)
     if args.use_glove:
         from ..data.embed import load_glove_vectors
@@ -139,16 +139,13 @@ def make_train_step(encoder, decoder, optimizer, pad_idx, grad_clip=None,
 
 
 def batch_step(step, device, mesh=None):
-    """``step`` as ``common.train_epoch`` calls it, on a loader batch:
-    this rank's rows of it (all of them without a ``mesh``) go to
-    ``device``."""
+    """``step`` as ``common.train_epoch`` calls it, on a loader batch or
+    a staged one (``common.stage_batches``): this rank's rows of it (all
+    of them without a ``mesh``) on ``device``."""
     def run(batch):
-        n = len(batch["captions"])
-        if mesh is not None:
-            batch = shard_batch({key: batch[key] for key in (
-                "imgs", "captions")}, mesh)
-        return step(to_device(batch["imgs"], device),
-                    to_device(batch["captions"], device), n)
+        batch, n = step_batch(batch, mesh)
+        return step(as_device_tensor(batch["imgs"], device),
+                    as_device_tensor(batch["captions"], device), n)
     return run
 
 
@@ -174,7 +171,8 @@ def train(args, device=None, mesh=None):
                            args.grad_clip, compute_dtype, qresnet, mesh)
     start = time.time()
     train_epochs(args, loader, batch_step(step, device, mesh), encoder,
-                 decoder, optimizer, start_epoch, metrics, mesh=mesh)
+                 decoder, optimizer, start_epoch, metrics, mesh=mesh,
+                 device=device)
     if is_lead(mesh):
         print("Model {} finished training for {} epochs in {:.4f} seconds."
               .format(args.model_name, args.epochs, time.time() - start))

@@ -39,6 +39,8 @@ it keeps its own set of operations (the LSTM gates, the softmax, the
 elementwise passes) in f32 where the JAX package computes in bf16.
 """
 
+import copy
+import os
 import time
 
 import numpy as np
@@ -46,26 +48,21 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..checkpoint import load_checkpoint, save_checkpoint, unpack_checkpoint
-from ..data.pipeline import host_prefetch, to_device
+from ..checkpoint import (async_saves, load_checkpoint, save_checkpoint,
+                          unpack_checkpoint, wait_pending_saves)
+from ..data.pipeline import (cached_batches, device_image_cache_from_env,
+                             device_prefetch, host_prefetch, to_device)
 from ..metric import AccumulatingMetric
 from ..models.encoder import trainable_mask
 from ..models.resnet import merge_bn_stats, resnet_forward
 from ..models.resnet_int8 import calibrate_act_maxes, quantize_resnet
 from ..ops.image import normalize_imagenet
-from ..parallel.mesh import assert_replicated
+from ..parallel.mesh import assert_replicated, shard_batch
 from ..parallel.vocab import shard_decoder, unshard_decoder
 from ..params import (adam_state_from_jax, adam_state_to_jax,
                       decoder_from_jax, decoder_to_jax, encoder_from_jax,
                       encoder_to_jax)
-
-
-def not_ported(what, item):
-    """The error for an option the port does not have yet, naming its
-    item in ROADMAP.md's Queue 1."""
-    return NotImplementedError(
-        "{} is not ported to icd_tpu_torch yet (ROADMAP.md, Queue 1: "
-        "{})".format(what, item))
+from ..utils.profiling import annotate, maybe_profile
 
 
 class LossDrain:
@@ -75,8 +72,10 @@ class LossDrain:
     The reference records (and prints) a loss for every batch
     (models/baseline.py:245-258). Fetching each scalar makes the host
     wait for the card every step; the drain keeps the per-batch loss
-    values and print lines unchanged while fetching ``BLOCK`` losses
-    with one synchronisation (``torch.stack(...).tolist()``).
+    values and print lines unchanged while fetching ``block`` losses
+    with one synchronisation (``torch.stack(...).tolist()``): 16, or
+    ``ICD_TPU_LOSS_FETCH_BLOCK`` (common.py:58); 1 fetches every loss as
+    its step is pushed.
 
     The per-batch "Time:" column is the dispatch-to-dispatch interval
     (host pacing). The wait of each block's fetch lands in the next
@@ -84,9 +83,10 @@ class LossDrain:
     the loss values are exact.
     """
 
-    BLOCK = 16  # losses fetched per synchronisation
-
-    def __init__(self, finish):
+    def __init__(self, finish, block=None):
+        if block is None:
+            block = int(os.environ.get("ICD_TPU_LOSS_FETCH_BLOCK", "16"))
+        self.block = max(1, block)
         self.finish = finish  # finish(loss_val, batch_idx, dt_seconds)
         self._pending = []  # [(device_loss, batch_idx, dispatch_t)]
         self._last_t = time.time()
@@ -95,7 +95,7 @@ class LossDrain:
         now = time.time()
         self._pending.append((device_loss, batch_idx, now - self._last_t))
         self._last_t = now
-        if len(self._pending) >= self.BLOCK:
+        if len(self._pending) >= self.block:
             self.flush()
 
     def flush(self):
@@ -260,6 +260,22 @@ def trainable_parameters(encoder, decoder, fine_tune_embedding=False,
     return enc, dec
 
 
+def pretrained_resnet_or_none(device=None):
+    """The backbone of ``models/resnet101.pth`` under ``ICD_TPU_ROOT``
+    (torchvision's ResNet-101 weights, the file the reference expects,
+    models/encoder.py:9-20) on ``device``, or None when there is no such
+    file (baseline.py:59)."""
+    from ..convert import load_resnet101_pth
+    from ..params import resnet_from_jax
+    from ..pathconf import _root
+
+    path = os.path.join(_root(), "models", "resnet101.pth")
+    if not os.path.exists(path):
+        return None
+    print("Loading pretrained ResNet-101 from {}".format(path))
+    return resnet_from_jax(load_resnet101_pth(path)).to(device)
+
+
 def resume_or_build(args, build, vocab, device):
     """The models a train driver starts from: ``build(args, vocab,
     generator, device)`` from a generator seeded 0, or ``args.checkpoint``
@@ -374,10 +390,10 @@ def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
     """One epoch of ``step`` over ``batches`` (baseline.py:305-347,
     attention.py:243-310). ``step(batch)`` runs one train step on a
     batch, a dict of numpy arrays (the ``DataLoader``'s, or made in
-    memory), and returns the loss on the device, not synchronised.
-    Losses are fetched 16 at a time (``LossDrain``) and printed, unless
-    not ``verbose``, as the JAX train loops print them. Returns the
-    per-batch losses.
+    memory) or of tensors already on the device (``stage_batches``), and
+    returns the loss on the device, not synchronised. Losses are fetched
+    in blocks (``LossDrain``) and printed, unless not ``verbose``, as
+    the JAX train loops print them. Returns the per-batch losses.
     """
     if num_batches is None:
         num_batches = len(batches)
@@ -396,7 +412,8 @@ def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
 
     drain = LossDrain(finish)
     for batch_idx, batch in enumerate(batches):
-        drain.push(step(batch), batch_idx)
+        with annotate("train_step"):
+            drain.push(step(batch), batch_idx)
     drain.flush()
     return batch_losses
 
@@ -407,34 +424,114 @@ def is_lead(mesh):
     return mesh is None or not dist.is_initialized() or dist.get_rank() == 0
 
 
+# The per-sample arrays of a loader batch, which a mesh rank cuts to its
+# rows before they are shipped (BERT's ``embeddings`` arrive cut).
+ROW_KEYS = ("imgs", "idx", "captions", "caption_lengths", "padded_lengths")
+
+
+def rank_rows(mesh):
+    """``batch -> batch`` keeping this rank's rows of ``ROW_KEYS`` (all
+    rows without a ``mesh``) and the global batch size under ``n``."""
+    def rows(batch):
+        out = dict(batch, n=len(batch["captions"]))
+        if mesh is not None:
+            out.update(shard_batch({k: batch[k] for k in ROW_KEYS
+                                    if k in batch}, mesh))
+        return out
+    return rows
+
+
+def step_batch(batch, mesh=None):
+    """(this rank's rows of a batch, the global batch size): a batch
+    from ``stage_batches`` is already cut and carries ``n``; a loader
+    batch is cut here."""
+    if "n" not in batch:
+        batch = rank_rows(mesh)(batch)
+    return batch, batch["n"]
+
+
+def stage_batches(loader, device, mesh=None, prepare=None, img_cache=None,
+                  buf=None):
+    """An epoch of ``loader``'s batches, staged for the train step: the
+    loader and ``prepare(batch)`` (BERT's embeddings) run on a producer
+    thread, which cuts a mesh rank's rows and ships them to ``device``
+    ahead of the step (``device_prefetch``). With a ``DeviceImageCache``
+    the producer ships only the images not yet in ``buf``, and each
+    batch's ``imgs`` are inserted and gathered here, on the consumer's
+    stream in step order (``cached_batches``), as the JAX step fuses
+    them (pipeline.py:197-207)."""
+    batches = iter(loader)
+    if prepare is not None:
+        batches = map(prepare, batches)
+    if img_cache is None:
+        yield from device_prefetch(map(rank_rows(mesh), batches), device)
+        return
+    for batch in cached_batches(batches, img_cache, device, rank_rows(mesh)):
+        img_cache.insert(buf, batch.pop("fresh_slots"),
+                         batch.pop("fresh_imgs"))
+        batch["imgs"] = img_cache.gather(buf, batch.pop("idx"))
+        yield batch
+
+
+def checkpoint_snapshot(encoder, decoder, optimizer):
+    """A callable returning the checkpoint's (encoder, decoder, Adam
+    state) numpy trees (``checkpoint.save_checkpoint``'s ``snapshot``).
+    For an async save (``ICD_TPU_CKPT_ASYNC``) it reads a device copy of
+    the modules and the optimizer taken now, since the next step's Adam
+    updates the parameters and moments in place; the writer thread then
+    makes the host trees."""
+    if async_saves():
+        encoder, decoder, optimizer = copy.deepcopy(
+            (encoder, decoder, optimizer))
+
+    def trees():
+        return (encoder_to_jax(encoder), decoder_to_jax(decoder),
+                adam_state_to_jax(optimizer, decoder, encoder))
+    return trees
+
+
 def train_epochs(args, loader, step, encoder, decoder, optimizer,
-                 start_epoch, metrics, prepare=None, mesh=None):
+                 start_epoch, metrics, prepare=None, mesh=None, device=None):
     """Epochs ``start_epoch`` to ``args.epochs - 1`` of ``step`` over
-    ``loader`` (the loader's next batch is prepared on a thread while the
-    card computes, and ``prepare(batch)`` runs there too), each followed
-    by ``checkpoints/<model_name>_<epoch>.ckpt`` with the per-batch
-    losses of every epoch so far. On a ``mesh`` every rank runs the
-    epochs; only global rank 0 prints and writes the checkpoint, after
+    ``loader`` (``stage_batches``: the next batches are read, prepared
+    (``prepare(batch)``) and shipped to ``device`` on a thread while the
+    card computes; through the device image cache with
+    ``ICD_TPU_DEVICE_IMAGE_CACHE``), each followed by
+    ``checkpoints/<model_name>_<epoch>.ckpt`` with the per-batch losses
+    of every epoch so far (written on a background thread with
+    ``ICD_TPU_CKPT_ASYNC``; all written when this returns). The run is
+    traced with ``ICD_TPU_PROFILE`` (``utils.profiling``). On a ``mesh``
+    every rank runs the epochs, each holding its own copy of the image
+    cache; only global rank 0 prints and writes the checkpoint, after
     the decoder's vocab shards and their Adam state are gathered, so the
     file is the one a single device writes."""
     lead = is_lead(mesh)
+    device = device if device is not None else mesh.device
     epoch_losses = metrics.get("epoch_losses", [])
-    for epoch in range(start_epoch, args.epochs):
-        batches = iter(loader)
-        if prepare is not None:
-            batches = map(prepare, batches)
-        epoch_losses.append(train_epoch(
-            step, host_prefetch(batches, size=2), epoch, args.epochs,
-            len(loader), args.print_freq, verbose=lead))
-        if mesh is not None:
-            unshard_decoder(decoder, mesh, optimizer)
-        if lead:
-            save_checkpoint(args, epoch, encoder_to_jax(encoder),
-                            decoder_to_jax(decoder), None,
-                            adam_state_to_jax(optimizer, decoder, encoder),
-                            {"epoch_losses": epoch_losses})
-        if mesh is not None:
-            shard_decoder(decoder, mesh, optimizer)
+    img_cache = device_image_cache_from_env(loader.dataset, args.batch_size)
+    buf = None if img_cache is None else img_cache.init_buffer(device)
+    name = "train_" + args.model_name
+    if mesh is not None and dist.is_initialized() and not lead:
+        name += "_rank{}".format(dist.get_rank())
+    with maybe_profile(name):
+        for epoch in range(start_epoch, args.epochs):
+            epoch_losses.append(train_epoch(
+                step, stage_batches(loader, device, mesh, prepare, img_cache,
+                                    buf),
+                epoch, args.epochs, len(loader), args.print_freq,
+                verbose=lead))
+            if mesh is not None:
+                unshard_decoder(decoder, mesh, optimizer)
+            if lead:
+                with annotate("checkpoint"):
+                    save_checkpoint(
+                        args, epoch, None, None, None, None,
+                        {"epoch_losses": epoch_losses},
+                        snapshot=checkpoint_snapshot(encoder, decoder,
+                                                     optimizer))
+            if mesh is not None:
+                shard_decoder(decoder, mesh, optimizer)
+    wait_pending_saves()
 
 
 def as_device_tensor(array, device):

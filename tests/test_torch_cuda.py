@@ -1094,3 +1094,106 @@ def test_vocab_parallel_gradients_on_cuda_tensors(card, family):
             scale = max(float(abs(value).max()), 1e-30)
             err = float(abs(got_leaves[name] - value).max())
             assert err <= 1e-6 * scale, (name, err, scale)
+
+
+def _cache_batches(gen, n=6, pool=10, b=8):
+    """``n`` baseline batches of ``b`` 64x64 images whose ids repeat among
+    ``pool`` images, with ``img_ids``."""
+    pixels = torch.randint(0, 256, (pool, 64, 64, 3), generator=gen,
+                           dtype=torch.uint8).numpy()
+    out = []
+    for _ in range(n):
+        ids = torch.randint(0, pool, (b,), generator=gen).tolist()
+        out.append(dict(imgs=pixels[ids], img_ids=ids,
+                        captions=seeded_captions(gen, b, 8, 40, 37, 38,
+                                                 min_words=1).long().numpy()))
+    return out
+
+
+@pytest.mark.parametrize("budget_rows", [64, 8])
+def test_device_image_cache_and_prefetch_on_card_are_bit_equal(card,
+                                                               budget_rows):
+    """Baseline f32 steps fed three ways on the card: each batch shipped
+    by the step, staged by ``device_prefetch`` (a side stream, a producer
+    thread), and through the device image cache (``budget_rows`` rows;
+    8, one batch, evicts while the producer runs two batches ahead):
+    the losses are equal to the bit."""
+    from icd_tpu_torch.data.pipeline import DeviceImageCache
+    from icd_tpu_torch.params import decoder_from_jax, encoder_from_jax
+    from icd_tpu_torch.testing import f32_products
+    from icd_tpu_torch.training import baseline
+    from icd_tpu_torch.training.common import (make_optimizer,
+                                               stage_batches,
+                                               trainable_parameters)
+
+    f32_products()
+    enc_tree, dec_tree, _ = _small_trees("baseline", seed=3)
+    batches = _cache_batches(torch.Generator().manual_seed(4))
+    losses = {}
+    for way in ("sync", "prefetch", "cache"):
+        enc = encoder_from_jax(enc_tree).to(card)
+        dec = decoder_from_jax(dec_tree).to(card)
+        optimizer = make_optimizer(*trainable_parameters(enc, dec), 1e-3,
+                                   1e-3)
+        run = baseline.batch_step(baseline.make_train_step(
+            enc, dec, optimizer, 0, 5.0), card)
+        feed = [dict(b) for b in batches]
+        cache = buf = None
+        if way == "cache":
+            cache = DeviceImageCache(budget_rows * 64 * 64 * 3 / (1 << 30),
+                                     (64, 64, 3), 8)
+            buf = cache.init_buffer(card)
+        else:
+            for b in feed:
+                b.pop("img_ids")
+        if way != "sync":
+            feed = stage_batches(feed, card, img_cache=cache, buf=buf)
+        losses[way] = torch.stack([run(b) for b in feed]).tolist()
+        if cache is not None:
+            assert cache.misses > (10 if budget_rows == 8 else 0)
+    assert losses["prefetch"] == losses["sync"]
+    assert losses["cache"] == losses["sync"]
+
+
+def test_async_checkpoint_snapshot_on_card(card, tmp_path, monkeypatch):
+    """An ``ICD_TPU_CKPT_ASYNC`` save with the writer held back: the
+    parameters and Adam's moments on the card are changed in place right
+    after the save returns, and the file holds the values at save
+    time."""
+    import time
+
+    from icd_tpu_torch import checkpoint
+    from icd_tpu_torch.params import (adam_state_to_jax, decoder_from_jax,
+                                      decoder_to_jax, encoder_from_jax)
+    from icd_tpu_torch.training.common import (checkpoint_snapshot,
+                                               make_optimizer,
+                                               trainable_parameters)
+
+    monkeypatch.setenv("ICD_TPU_ROOT", str(tmp_path))
+    monkeypatch.setenv("ICD_TPU_CKPT_ASYNC", "1")
+    enc_tree, dec_tree, _ = _small_trees("attention", seed=5)
+    enc = encoder_from_jax(enc_tree).to(card)
+    dec = decoder_from_jax(dec_tree).to(card)
+    optimizer = make_optimizer(*trainable_parameters(enc, dec), 1e-3, 1e-3)
+    sum(p.sum() for p in dec.parameters() if p.requires_grad).backward()
+    optimizer.step()
+    want_dec = decoder_to_jax(dec)
+    want_mu = adam_state_to_jax(optimizer, dec, enc)["mu"]
+    checkpoint._get_async_pool().submit(time.sleep, 0.5)
+    args = type("Args", (), dict(model_name="card_async", grad_clip=5.0))()
+    checkpoint.save_checkpoint(args, 0, None, None, None, None, {},
+                               snapshot=checkpoint_snapshot(enc, dec,
+                                                            optimizer))
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.mul_(2.0).add_(1.0)
+        for state in optimizer.state.values():
+            state["exp_avg"].add_(1.0)
+    checkpoint.wait_pending_saves()
+    got = checkpoint.load_checkpoint(name="card_async_0.ckpt",
+                                     verbose=False)
+    got_mu = adam_moments(got["decoder_optimizer"])["mu"]
+    for key in ("fc", "h_lin", "f_beta"):
+        assert (got["decoder"][key]["w"] == want_dec[key]["w"]).all()
+        assert (got_mu["decoder"][key]["w"]
+                == want_mu["decoder"][key]["w"]).all()

@@ -43,7 +43,11 @@ def test_package_imports_no_jax_and_no_icd_tpu():
     "icd_tpu_torch.models.bert", "icd_tpu_torch.models.bert_tokenize",
     "icd_tpu_torch.models.bert_load", "icd_tpu_torch.models.bert_embed",
     "icd_tpu_torch.parallel.mesh", "icd_tpu_torch.parallel.vocab",
-    "icd_tpu_torch.parallel.dryrun"])
+    "icd_tpu_torch.parallel.dryrun", "icd_tpu_torch.convert",
+    "icd_tpu_torch.export", "icd_tpu_torch.compat",
+    "icd_tpu_torch.export_reference", "icd_tpu_torch.native.imageio",
+    "icd_tpu_torch.utils.profiling", "icd_tpu_torch.checkpoint",
+    "icd_tpu_torch.data.pipeline"])
 def test_training_modules_import_no_jax_and_no_icd_tpu(module):
     code = ("import sys, {}; print(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu', "

@@ -153,6 +153,26 @@ def _train_cases():
     return cases
 
 
+CACHE_POOL = 12  # distinct images of the cached case, 4 rows of cache
+
+
+def _cached_case():
+    """The device image cache on a (2, 2) mesh: 4 baseline batches whose
+    ids repeat among CACHE_POOL images, a budget of one batch (evicting),
+    each image's pixels made from its id."""
+    rng = np.random.default_rng(7)
+    batches = []
+    for i in range(4):
+        ids = [int(x) for x in rng.choice(CACHE_POOL, B)]
+        batches.append({"imgs": np.stack([_images(1, 100 + j)[0]
+                                          for j in ids]),
+                        "captions": _captions(B, 30 + i), "img_ids": ids})
+    base = (encoder_tree(), baseline_tree())
+    return dict(kind="cached", name="cached_2x2", n_data=2, n_model=2,
+                family="baseline", encoder=base[0], decoder=base[1],
+                batches=batches, budget_gb=B * 64 * 64 * 3 / (1 << 30))
+
+
 def _rank_case(name, shape, family, trees, batches, options, kind="train"):
     options = dict(options, lr=LR)
     case = dict(kind=kind, name=name, n_data=shape[0], n_model=shape[1],
@@ -324,6 +344,7 @@ def world(tmp_path_factory):
                       _batches(), {}, kind="ckpt")
     ckpt["root"] = root
     cases.append(ckpt)
+    cases.append(_cached_case())
 
     ranks = {}
 
@@ -565,6 +586,26 @@ def test_checkpoint_resumes_onto_a_mesh(world):
     _trees_close(resumed["decoder"], one["decoder"], atol=1e-5,
                  skip=SCORE_BIAS)
     assert int(resumed["adam"]["count"]) == 3
+
+
+def test_cached_batches_on_a_mesh(world):
+    """``cached_batches`` on a (2, 2) mesh, one batch of cache rows: every
+    rank's losses equal its direct staging's to the bit, equal on every
+    rank, and its hits and misses are icd_tpu's ``DeviceImageCache``'s on
+    the same id stream (each rank rewrites the whole batch)."""
+    from icd_tpu.data.pipeline import DeviceImageCache as JaxCache
+
+    case = world["cases"][[c["name"] for c in world["cases"]].index(
+        "cached_2x2")]
+    jax_cache = JaxCache(case["budget_gb"], (64, 64, 3), B)
+    for batch in case["batches"]:
+        jax_cache.rewrite(dict(batch))
+    results = [r["cached_2x2"] for r in world["ranks"]]
+    for got in results:
+        assert got["cached"] == got["direct"] == results[0]["direct"]
+        assert (got["hits"], got["misses"]) == (jax_cache.hits,
+                                                jax_cache.misses)
+    assert jax_cache.misses > CACHE_POOL  # the one-batch budget evicts
 
 
 def test_dryrun_passes_every_phase(world):

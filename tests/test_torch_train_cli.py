@@ -251,13 +251,37 @@ def test_init_vocab_matches_icd_tpu(coco_root, tmp_path, monkeypatch,
 
 
 def test_unported_train_options_raise(coco_root, tmp_path, monkeypatch):
-    """What the port's train CLI does not run yet raises, naming its
-    ROADMAP item: a present models/resnet101.pth (its conversion)."""
-    for part in (("cocoapi", "annotations"), ("pkldata",)):
+    """A present models/resnet101.pth, which raised before its conversion
+    was ported, is now the trunk the port's train CLI starts from: the
+    checkpoint's backbone holds the file's convolutions (the trunk is
+    frozen) and its BN parameters."""
+    import torch
+
+    from icd_tpu_torch.export import resnet_to_torch_state_dict
+    from icd_tpu_torch.params import resnet_to_jax
+
+    for part in (("cocoapi", "annotations"), ("cocoapi", "images"),
+                 ("pkldata",)):
         shutil.copytree(os.path.join(coco_root, *part),
                         tmp_path.joinpath(*part))
+    tree = resnet_to_jax(init_resnet(torch.Generator().manual_seed(5),
+                                     SMALL_DEPTHS, SMALL_WIDTHS,
+                                     device="cpu"))
     (tmp_path / "models").mkdir()
-    (tmp_path / "models" / "resnet101.pth").write_bytes(b"")
+    torch.save(resnet_to_torch_state_dict(tree),
+               str(tmp_path / "models" / "resnet101.pth"))
     monkeypatch.setenv("ICD_TPU_ROOT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        port_train.main(["tcli_no"] + _flags())
+    monkeypatch.setattr(ta, "init_encoder_attention", _small_port_encoder)
+    monkeypatch.setattr(ta, "init_attention_decoder", functools.partial(
+        init_attention_decoder, encoder_dim=SMALL_DIM))
+    lines = _run(port_train.main, ["tcli_no"] + _flags())
+    assert "Loading pretrained ResNet-101 from {}".format(
+        os.path.join(str(tmp_path), "models", "resnet101.pth")) in lines
+    got = jax_load_checkpoint(name="tcli_no_0.ckpt")["encoder"]["resnet"]
+    np.testing.assert_array_equal(got["stem"]["conv"], tree["stem"]["conv"])
+    for g, w in zip(jax.tree_util.tree_leaves(got["layers"]),
+                    jax.tree_util.tree_leaves(tree["layers"])):
+        if g.ndim == 4:
+            np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got["stem"]["bn"]["scale"],
+                                  tree["stem"]["bn"]["scale"])

@@ -5,8 +5,9 @@ attention model, greedy decoding of the baseline model, the bench
 (``python -m icd_tpu_torch.bench``), training and teacher-forced
 evaluation of both models (f32, --amp, --int8_encoder), the
 attention model's --use_bert training and eval with bert-base caption
-embeddings, the multi-chip path, and the reference's .pth.tar /
-resnet101.pth artifacts and the training data path's aids.
+embeddings, the multi-chip path, the reference's .pth.tar /
+resnet101.pth artifacts and the training data path's aids, and the COCO
+detection eval and the notebook's teacher-forced caption demo.
 
     python3 chip_smoke.py
 
@@ -265,6 +266,26 @@ Phases, one line of output each:
                Chrome trace exists and holds CUDA kernels and one
                train_step span a step and a checkpoint span; its bytes and
                top kernels. None of 30-32 launches K1 or K2 (checked).
+33. coco_eval  the port's COCO detection eval on the machine's host (no
+               card work): the mask library built by g++ (seconds, path);
+               on 64 seeded 480x640 masks decode(encode(m)) == m, area ==
+               m.sum() and iou equal to the dense masks' IoU by numpy;
+               perfect detections give AP 1.0 for bbox and segm; then
+               seeded instances at val2017's density (640x480, 80
+               categories, 7.36 objects an image, 15 % crowd; results one
+               a near copy of each object, the rest random) through
+               loadRes, evaluate, accumulate and summarize, host seconds
+               of each: bbox over 1,000 images x 100 results (a fifth of
+               val2017), segm (polygon ground truth, RLE results from
+               frPyObjects) over 500 x 20;
+34. captions_demo  captions_demo.caption_teacher_forced on the card for
+               the attention, baseline and --use_bert models at full
+               width (3 seeded images, Zipf captions, f32, TF32 off)
+               against the CPU: each caption's loss (but at <end>) within
+               eval_f32's 1e-5, from the card's decoder on the CPU's
+               encoder output and from the whole forward, which TF32 must
+               exceed; words that agree and the captions printed; no K1
+               or K2 launch.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must have launched its kernels, and the baseline,
@@ -3766,6 +3787,375 @@ def slice11(models, gen, results):
     phase_profile_train(models, gen, results)
 
 
+# ---------------------------------------------------------------------------
+# The COCO detection eval and the notebook demo (coco_eval, captions_demo)
+# ---------------------------------------------------------------------------
+
+# val2017: 5,000 images of 640 x 480 (most), 80 categories, 36,781
+# instances; COCO's maxDets is 100. Shares of instances by area:
+# small (< 32^2) 41 %, medium 34 %, large (> 96^2) 25 %.
+COCO_W, COCO_H, COCO_CATS = 640, 480, 80
+COCO_GT_PER_IMAGE, COCO_CROWD = 36781 / 5000, 0.15
+COCO_AREAS = ((0.41, 16, 32 ** 2), (0.34, 32 ** 2, 96 ** 2),
+              (0.25, 96 ** 2, 300 ** 2))
+COCO_BBOX_IMAGES, COCO_BBOX_DETS = 1000, 100
+COCO_SEGM_IMAGES, COCO_SEGM_DETS = 500, 20
+
+
+def coco_box(rng):
+    """A box whose area falls in COCO's small / medium / large shares."""
+    share = rng.random()
+    for p, lo, hi in COCO_AREAS:
+        if share < p:
+            break
+        share -= p
+    area = rng.uniform(lo, hi)
+    aspect = math.exp(rng.uniform(-0.7, 0.7))
+    w = min(math.sqrt(area * aspect), COCO_W - 1.0)
+    h = min(area / w, COCO_H - 1.0)
+    x, y = rng.uniform(0, COCO_W - w), rng.uniform(0, COCO_H - h)
+    return [float(x), float(y), float(w), float(h)]
+
+
+def coco_polygon(rng, bb):
+    """An octagon along the box's edges, each vertex moved inward by up
+    to a tenth of the box."""
+    import numpy as np
+
+    x, y, w, h = bb
+    fx = np.asarray([0, .5, 1, 1, 1, .5, 0, 0])
+    fy = np.asarray([0, 0, 0, .5, 1, 1, 1, .5])
+    jx, jy = rng.uniform(0, 0.1, 8), rng.uniform(0, 0.1, 8)
+    px = x + w * (fx + np.where(fx < .5, jx, np.where(fx > .5, -jx, 0)))
+    py = y + h * (fy + np.where(fy < .5, jy, np.where(fy > .5, -jy, 0)))
+    return [float(v) for xy in zip(px, py) for v in xy]
+
+
+def uncompressed_rle(m):
+    """A dense (h, w) mask as an uncompressed RLE dict, the form of COCO's
+    crowd annotations."""
+    import numpy as np
+
+    flat = m.reshape(-1, order="F")
+    edges = np.flatnonzero(np.diff(flat)) + 1
+    runs = np.diff(np.concatenate([[0], edges, [flat.size]]))
+    return {"size": list(m.shape),
+            "counts": ([0] if flat[0] else []) + runs.tolist()}
+
+
+def coco_instances(seed, n_images, dets_per_image, segm, perfect=False):
+    """(ground-truth dataset, results) at val2017's density: Poisson(7.36)
+    objects an image, a category of 80, 15 % crowd (bbox: the box; segm:
+    an octagon polygon, crowd ones an uncompressed RLE); results (what a
+    detector writes: image_id, category_id, score, and a bbox, or an RLE
+    from frPyObjects) of which one an object is that object moved by up
+    to 5 % of its size (its category kept 9 times in 10, its score drawn
+    from [0.3, 1)) and the rest random boxes (scores from [0, 0.7)).
+    ``perfect``: no crowd, and one result an object, the object itself
+    (score 1)."""
+    import numpy as np
+
+    from icd_tpu_torch.native import mask as maskUtils
+
+    rng = np.random.default_rng(seed)
+    images = [{"id": i + 1, "width": COCO_W, "height": COCO_H,
+               "file_name": "{:012d}.jpg".format(i + 1)}
+              for i in range(n_images)]
+    cats = [{"id": c + 1, "name": "cat{}".format(c),
+             "supercategory": "super{}".format(c // 10)}
+            for c in range(COCO_CATS)]
+    gts, results = [], []
+    for img in images:
+        objects = []
+        for _ in range(rng.poisson(COCO_GT_PER_IMAGE)):
+            bb = coco_box(rng)
+            ann = {"id": len(gts) + 1, "image_id": img["id"],
+                   "category_id": int(rng.integers(1, COCO_CATS + 1)),
+                   "bbox": bb, "area": bb[2] * bb[3],
+                   "iscrowd": int(not perfect and rng.random() < COCO_CROWD)}
+            if segm:
+                poly = coco_polygon(rng, bb)
+                rle = maskUtils.frPyObjects([poly], COCO_H, COCO_W)[0]
+                ann["area"] = float(maskUtils.area(rle))
+                ann["segmentation"] = (
+                    uncompressed_rle(maskUtils.decode(rle)) if ann["iscrowd"]
+                    else [poly])
+            gts.append(ann)
+            objects.append(ann)
+        n_dets = len(objects) if perfect else dets_per_image
+        for d in range(n_dets):
+            if d < len(objects):
+                src = objects[d]
+                bb = list(src["bbox"])
+                cat = src["category_id"]
+                if not perfect:
+                    bb = [v + float(rng.uniform(-0.05, 0.05)) * s
+                          for v, s in zip(bb, bb[2:] * 2)]
+                    if rng.random() < 0.1:
+                        cat = int(rng.integers(1, COCO_CATS + 1))
+            else:
+                bb, cat = coco_box(rng), int(rng.integers(1, COCO_CATS + 1))
+            # a detector scores its hits above its misses, mostly
+            score = (1.0 if perfect else float(rng.uniform(0.3, 1.0))
+                     if d < len(objects) else float(rng.uniform(0.0, 0.7)))
+            res = {"image_id": img["id"], "category_id": cat,
+                   "score": score}
+            if segm:
+                poly = (src["segmentation"][0] if perfect
+                        else coco_polygon(rng, bb))
+                res["segmentation"] = maskUtils.frPyObjects(
+                    [poly], COCO_H, COCO_W)[0]
+            else:
+                res["bbox"] = bb
+            results.append(res)
+    return ({"images": images, "annotations": gts, "categories": cats},
+            results)
+
+
+def coco_eval_run(dataset, results, iou_type):
+    """``loadRes`` and COCOeval's evaluate / accumulate / summarize over
+    one ground truth, with the host seconds of each; their printing goes
+    to a buffer. Returns (stats, seconds)."""
+    import io
+
+    from icd_tpu_torch.data.coco import COCO
+    from icd_tpu_torch.data.cocoeval import COCOeval
+
+    seconds = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        gt = COCO()
+        gt.dataset = dataset
+        gt.createIndex()
+        dt = gt.loadRes(results)
+        seconds["index_and_loadRes_s"] = time.perf_counter() - t0
+        ev = COCOeval(gt, dt, iouType=iou_type)
+        for step in ("evaluate", "accumulate", "summarize"):
+            t0 = time.perf_counter()
+            getattr(ev, step)()
+            seconds[step + "_s"] = time.perf_counter() - t0
+    return [float(v) for v in ev.stats], seconds
+
+
+def mask_library_checks(seed=31, n=64):
+    """On n seeded COCO-sized masks (half unions of boxes, half noise):
+    decode(encode(m)) == m, area == m.sum(), and iou (the first half as
+    detections, the second as ground truth, crowd flags alternating)
+    equal to the IoU of the dense masks computed with numpy."""
+    import numpy as np
+
+    from icd_tpu_torch.native import mask as maskUtils
+
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((COCO_H, COCO_W, n), np.uint8, order="F")
+    for i in range(n):
+        if i % 2:
+            masks[:, :, i] = rng.random((COCO_H, COCO_W)) < 0.3
+        else:
+            for _ in range(3):
+                x, y, w, h = (int(v) for v in coco_box(rng))
+                masks[y:y + h + 1, x:x + w + 1, i] = 1
+    rles = maskUtils.encode(masks)
+    check(np.array_equal(maskUtils.decode(rles), masks),
+          "mask decode(encode(m)) == m")
+    check(np.array_equal(maskUtils.area(rles),
+                         masks.reshape(-1, n).sum(0)), "mask area == m.sum()")
+    half = n // 2
+    flat = masks.reshape(-1, n, order="F").astype(np.float64)
+    dt, gt = flat[:, :half], flat[:, half:]
+    inter = dt.T @ gt  # exact: integers below 2^53
+    dt_area, gt_area = dt.sum(0)[:, None], gt.sum(0)[None, :]
+    crowd = np.arange(half) % 2
+    union = np.where(crowd[None, :] == 1, dt_area,
+                     dt_area + gt_area - inter)
+    want = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+    got = maskUtils.iou(rles[:half], rles[half:], crowd.tolist())
+    check(np.array_equal(got, want), "mask iou == dense numpy IoU",
+          float(np.abs(got - want).max()))
+    return {"masks": n, "size": [COCO_H, COCO_W],
+            "runs": int(sum(len(r["counts"]) for r in rles))}
+
+
+def phase_coco_eval():
+    """The port's COCO detection eval on the host of the card's machine
+    (no kernel of the card is involved): the mask library's build, its
+    checks on 64 masks, a perfect-detection set of each iouType (AP must
+    be 1.0) and the timed eval at val2017's density: bbox over
+    COCO_BBOX_IMAGES images x 100 results, segm over COCO_SEGM_IMAGES x
+    20."""
+    from icd_tpu_torch.bench import card_line
+    from icd_tpu_torch.native import mask as maskUtils
+
+    t0 = time.perf_counter()
+    maskUtils.LIBRARY.load()
+    build_s = time.perf_counter() - t0
+    masks = mask_library_checks()
+    perfect = {}
+    for iou_type in ("bbox", "segm"):
+        stats, _ = coco_eval_run(*coco_instances(
+            41, 50, 0, iou_type == "segm", perfect=True), iou_type)
+        perfect[iou_type] = stats[0]
+        check(stats[0] == 1.0, "perfect {} detections AP".format(iou_type),
+              stats)
+    runs = {}
+    for iou_type, n_images, dets in (
+            ("bbox", COCO_BBOX_IMAGES, COCO_BBOX_DETS),
+            ("segm", COCO_SEGM_IMAGES, COCO_SEGM_DETS)):
+        t0 = time.perf_counter()
+        dataset, results = coco_instances(43, n_images, dets,
+                                          iou_type == "segm")
+        made_s = time.perf_counter() - t0
+        stats, seconds = coco_eval_run(dataset, results, iou_type)
+        check(len(stats) == 12 and all(
+            math.isfinite(v) and -1 <= v <= 1 for v in stats)
+            and stats[0] > 0, iou_type + " stats", stats)
+        runs[iou_type] = dict(images=n_images, results_per_image=dets,
+                              ground_truth=len(dataset["annotations"]),
+                              data_s=made_s, stats=stats, **seconds)
+    log("coco_eval", library=maskUtils.LIBRARY.path(), build_s=build_s,
+        mask_checks=masks, perfect_ap=perfect, clock="host", **runs,
+        card=card_line())
+
+
+def phase_captions_demo(models, base, bert_state, results):
+    """``captions_demo.caption_teacher_forced`` (the notebook's argmax
+    captions under teacher forcing) on the card for the full-width
+    attention, baseline and --use_bert models over 3 seeded uint8 images
+    and Zipf captions (their own seeded generator), f32 with TF32 off,
+    against the same on the CPU. Each caption's loss from its scores,
+    within eval_f32's limit (1e-5 relative): the card's decoder on the
+    CPU's encoder output (and BERT embeddings), and the whole forward,
+    which the card's run with TF32 on must exceed. The words that agree
+    and the captions are printed."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.captions_demo import (caption_teacher_forced,
+                                             decoder_scores, image_features)
+    from icd_tpu_torch.models.bert_embed import BertCaptionEmbedder
+    from icd_tpu_torch.testing import f32_products, seeded_captions
+
+    bert, tokenizer, vocab = bert_state
+    imgs = uint8_images(3, seed=47).numpy()
+    captions = [row[row != 0] for row in seeded_captions(
+        torch.Generator().manual_seed(7), 3, 16, VOCAB, START_ID, END_ID,
+        min_words=5).numpy()]
+    families = {"attention": models, "baseline": base,
+                "bert": bert_models(models)}
+
+    def mtype(family):
+        return "baseline" if family == "baseline" else "attention"
+
+    def losses(scores, family):
+        # Every position but <end>'s: the baseline decoder pins <end>'s
+        # score at -1e9, so a loss over it would be ~1e9 and hide every
+        # difference below its rounding; the attention decoders' <end>
+        # comes from one steered LSTM unit of large weights (steer_end),
+        # which magnifies the trunk's f32 difference at that position
+        # (on the H100: 1.3e-5 to 1.9e-5 with it, 1.7e-6 without).
+        offset = 0 if family == "baseline" else 1
+        out = []
+        for s, cap in zip(scores, captions):
+            target = torch.as_tensor(cap[offset:], dtype=torch.long)
+            keep = target != END_ID
+            out.append(torch.nn.functional.cross_entropy(
+                s[0].cpu()[keep], target[keep]))
+        return torch.stack(out)
+
+    def rel(got, want):
+        return ((got - want).abs() / want.abs()).max().item()
+
+    def run(device):
+        out = {}
+        for family, (enc, dec) in families.items():
+            if device == "cpu":
+                enc, dec = copy.deepcopy(enc).cpu(), copy.deepcopy(dec).cpu()
+            embedder = None
+            if family == "bert":
+                embedder = BertCaptionEmbedder(
+                    vocab, model=copy.deepcopy(bert), tokenizer=tokenizer,
+                    device=device)
+            t0 = time.perf_counter()
+            words = [caption_teacher_forced(mtype(family), enc, dec, img,
+                                            cap, vocab, bert_embedder=embedder)
+                     for img, cap in zip(imgs, captions)]
+            seconds = time.perf_counter() - t0
+            feats = [image_features(mtype(family), enc, img) for img in imgs]
+            scores = [decoder_scores(mtype(family), dec, f, cap,
+                                     embedder).cpu()
+                      for f, cap in zip(feats, captions)]
+            out[family] = dict(enc=enc, dec=dec, embedder=embedder,
+                               words=words, seconds=seconds, scores=scores,
+                               feats=[f.cpu() for f in feats])
+        return out
+
+    f32_products()
+    counters = zero_counters()
+    card = run("cuda")
+    check_no_kernel(counters, "captions_demo", results)
+    cpu = run("cpu")
+    out = {}
+    for family in families:
+        c, p = card[family], cpu[family]
+        want = losses(p["scores"], family)
+        # the card's decoder on the CPU's encoder output and embeddings
+        cpu_embedder = p["embedder"]
+        same = [decoder_scores(
+            mtype(family), c["dec"], f, cap,
+            None if cpu_embedder is None else
+            (lambda caps: cpu_embedder(caps).to("cuda")))
+            for f, cap in zip(p["feats"], captions)]
+        f32_products(tf32=True)
+        tf32 = [decoder_scores(mtype(family), c["dec"], image_features(
+            mtype(family), c["enc"], img), cap, c["embedder"])
+            for img, cap in zip(imgs, captions)]
+        f32_products()
+        for s, cap in zip(c["scores"], captions):
+            offset = 0 if family == "baseline" else 1
+            check(s.shape == (1, len(cap) - offset, VOCAB)
+                  and bool(s.isfinite().all()), family + " demo scores",
+                  s.shape)
+        equal = sum(a == b for w, cw in zip(c["words"], p["words"])
+                    for a, b in zip(w.split(), cw.split()))
+        total = sum(max(len(w.split()), len(cw.split()))
+                    for w, cw in zip(c["words"], p["words"]))
+        # <end>'s column, pinned at -1e9 on the baseline decoder, left out
+        keep = torch.arange(VOCAB) != END_ID
+        out[family] = dict(
+            words_equal=equal, words=total,
+            loss_rel_err_vs_cpu=rel(losses(c["scores"], family), want),
+            decoder_loss_rel_err_same_input=rel(losses(same, family), want),
+            tf32_loss_rel_err_vs_cpu=rel(losses(tf32, family), want),
+            scores_rel_err_vs_cpu=max(rel_err(s[..., keep], q[..., keep])
+                                      for s, q in zip(c["scores"],
+                                                      p["scores"])),
+            features_rel_err_vs_cpu=max(rel_err(f, q) for f, q in zip(
+                c["feats"], p["feats"])),
+            card_seconds=c["seconds"], cpu_seconds=p["seconds"],
+            card_captions=c["words"], cpu_captions=p["words"])
+    log("captions_demo", images=len(imgs), k1_launches=0, k2_launches=0,
+        **out)
+    for family, row in out.items():
+        # As eval_f32: the whole forward inherits the f32 trunk's
+        # card-vs-CPU difference (on the H100 the grid's 5.9e-4 of its
+        # largest value at batch 1, inside path_f32's 1e-3), ~2e-6 on a
+        # loss; TF32 moves them by 4.7e-5 (baseline) to 1.6e-3.
+        check(row["decoder_loss_rel_err_same_input"] <= 1e-5,
+              family + " demo decoder losses card vs CPU",
+              row["decoder_loss_rel_err_same_input"])
+        check(row["loss_rel_err_vs_cpu"] <= 1e-5
+              < row["tf32_loss_rel_err_vs_cpu"],
+              family + " demo losses card vs CPU, TF32",
+              row["loss_rel_err_vs_cpu"], row["tf32_loss_rel_err_vs_cpu"])
+
+
+def slice12(models, bert_state, results):
+    """The phases of the COCO detection eval and the notebook demo."""
+    phase_coco_eval()
+    phase_captions_demo(models, baseline_models(models), bert_state,
+                        results)
+
+
 def main():
     import torch
 
@@ -3815,6 +4205,7 @@ def main():
     phase_mesh_nccl1(models, gen, results)
     phase_mesh_gloo_shared(results)
     slice11(models, gen, results)
+    slice12(models, (bert, tokenizer, vocab), results)
     log("total", seconds=time.perf_counter() - STARTED)
 
     k1 = dict(name="fused_attention", route="cuda",

@@ -6,9 +6,9 @@
 and pickles them, as the reference's ``save_checkpoint`` does. Those
 modules import packages that may be absent: torchvision (the ResNet-101
 backbone, models/encoder.py:9-20), pytorch_pretrained_bert (the BERT
-decoder, models/attention.py:96-100) and bcolz (embed.py).
-``install_reference_shims`` registers stand-ins under those names when
-the real package is missing:
+decoder, models/attention.py:96-100), bcolz (embed.py) and pycocotools
+(vocabulary.py, dataset.py). ``install_reference_shims`` registers
+stand-ins under those names when the real package is missing:
 
 - ``torchvision.models.resnet.{ResNet, Bottleneck}`` and ``resnet101``:
   a working torch ResNet written against the architecture, with
@@ -23,7 +23,13 @@ the real package is missing:
   ``BERT_MODEL_DIR`` through the port's own reader and tokenizer
   (``models/bert_load.py``, ``models/bert_tokenize.py``): no download,
   no ``transformers``;
-- ``bcolz``, a module whose every attribute raises.
+- ``bcolz``, a module whose every attribute raises;
+- ``pycocotools`` with ``coco``, ``mask`` and ``cocoeval``: the port's
+  own ``data/coco.py``, ``native/mask.py`` and ``data/cocoeval.py``.
+  The repository's ``cocoapi/PythonAPI`` shim is icd_tpu's and would
+  import the JAX package, so it is never used: where ``sys.modules``
+  already holds it, the stand-ins take its place for the call and it is
+  put back after.
 
 Reading a reference checkpoint needs none of this: the port's loader
 (``checkpoint.load_torch_archive``) never imports the reference's
@@ -35,6 +41,12 @@ import importlib.machinery
 import os
 import sys
 import types
+
+_PYCOCOTOOLS = ("pycocotools", "pycocotools.coco", "pycocotools.mask",
+                "pycocotools.cocoeval")
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO_COCOAPI = os.path.join(_REPO_ROOT, "cocoapi", "PythonAPI")
+
 
 def _module_missing(name):
     if name in sys.modules:
@@ -263,6 +275,45 @@ def _build_bert_stub():
             "pytorch_pretrained_bert.tokenization": tokenization}
 
 
+def _installed_pycocotools():
+    """Whether a pycocotools other than the repository's icd_tpu shim (and
+    other than these stand-ins) is importable, found without importing
+    it: importing the shim would import the JAX package."""
+    mod = sys.modules.get("pycocotools")
+    if mod is not None:
+        origin = os.path.abspath(getattr(mod, "__file__", None) or "")
+        return not (origin.startswith(_REPO_COCOAPI + os.sep)
+                    or getattr(mod, "__is_icd_tpu_shim__", False))
+    paths = [p for p in sys.path
+             if os.path.abspath(p or os.curdir) != _REPO_COCOAPI]
+    return importlib.machinery.PathFinder.find_spec(
+        "pycocotools", paths) is not None
+
+
+def _build_pycocotools_stub():
+    """``pycocotools``, ``.coco``, ``.mask`` and ``.cocoeval`` over the
+    port's modules."""
+    from .data import coco, cocoeval
+    from .native import mask
+
+    coco_mod = types.ModuleType("pycocotools.coco")
+    coco_mod.COCO = coco.COCO
+    coco_mod._is_array_like = coco._is_array_like
+    mask_mod = types.ModuleType("pycocotools.mask")
+    for name in ("encode", "decode", "merge", "area", "iou", "toBbox",
+                 "frBbox", "frPoly", "frUncompressedRLE", "frPyObjects",
+                 "nms", "bbNms"):
+        setattr(mask_mod, name, getattr(mask, name))
+    eval_mod = types.ModuleType("pycocotools.cocoeval")
+    eval_mod.COCOeval = cocoeval.COCOeval
+    eval_mod.Params = cocoeval.Params
+    pkg = types.ModuleType("pycocotools")
+    pkg.__path__ = []  # a package: its submodules resolve in sys.modules
+    pkg.__is_icd_tpu_shim__ = True
+    pkg.coco, pkg.mask, pkg.cocoeval = coco_mod, mask_mod, eval_mod
+    return dict(zip(_PYCOCOTOOLS, (pkg, coco_mod, mask_mod, eval_mod)))
+
+
 class _RaisingModule(types.ModuleType):
     def __getattr__(self, name):
         if name.startswith("__") and name.endswith("__"):
@@ -286,22 +337,20 @@ def install_reference_shims(reference_root):
     """Make the reference's modules importable: its root APPENDED to
     ``sys.path`` (its ``models``, ``vocabulary``, ``train`` and ``eval``
     would otherwise shadow same-named modules; appended, they resolve
-    only where nothing else has the name), the repository's pycocotools
-    (``cocoapi/PythonAPI``) importable, and stand-ins for the missing
+    only where nothing else has the name), and stand-ins for the missing
     packages above. Returns the state ``uninstall_reference_shims``
     undoes."""
     state = {"root": os.path.abspath(reference_root), "paths": [],
-             "modules": []}
+             "modules": [], "displaced": {}}
     if reference_root not in sys.path and os.path.isdir(reference_root):
         sys.path.append(reference_root)
         state["paths"].append(reference_root)
-    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    shim_dir = os.path.join(repo_root, "cocoapi", "PythonAPI")
-    if _module_missing("pycocotools") and shim_dir not in sys.path:
-        sys.path.append(shim_dir)
-        state["paths"].append(shim_dir)
 
     stubs = {}
+    if not _installed_pycocotools():
+        stubs.update(_build_pycocotools_stub())
+        state["displaced"] = {name: sys.modules[name]
+                              for name in _PYCOCOTOOLS if name in sys.modules}
     if _module_missing("torchvision"):
         stubs.update(_build_torchvision_stub())
     if _module_missing("pytorch_pretrained_bert"):
@@ -316,13 +365,15 @@ def install_reference_shims(reference_root):
 
 
 def uninstall_reference_shims(state):
-    """Undo ``install_reference_shims``: restore ``sys.path`` and evict
-    the stand-ins and every module imported from the reference root."""
+    """Undo ``install_reference_shims``: restore ``sys.path``, evict the
+    stand-ins and every module imported from the reference root, and put
+    back the modules the stand-ins displaced."""
     for p in state["paths"]:
         if p in sys.path:
             sys.path.remove(p)
     for name in state["modules"]:
         sys.modules.pop(name, None)
+    sys.modules.update(state["displaced"])
     root = state["root"] + os.sep
     for name, mod in list(sys.modules.items()):
         f = getattr(mod, "__file__", None)

@@ -3,66 +3,33 @@
 
 The library is built at the first call of ``decode_resize_jpeg``, with
 ``g++ -O3 -std=c++17 -fPIC -shared imageio.cpp -ljpeg``, into ``build/``
-at the repository root (its name carries a hash of the source and the
-flags). Importing this module builds nothing. ``available()`` says
-whether the build succeeded; without ``g++`` or libjpeg it fails, and
-``data/dataset.py`` decodes with PIL instead.
+at the repository root (``native/build.py``; its name carries a hash of
+the source and the flags). Importing this module builds nothing.
+``available()`` says whether the build succeeded; without ``g++`` or
+libjpeg it fails, and ``data/dataset.py`` decodes with PIL instead.
 """
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import threading
 
 import numpy as np
 
+from .build import BUILD_DIR, NativeLibrary  # noqa: F401  (BUILD_DIR: tests)
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "imageio.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build")
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
-
-_lib = None
-_error = None
-_lock = threading.Lock()
 
 
-def library_path():
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
-    return os.path.join(BUILD_DIR, "libicdimage_{}.so".format(
-        digest.hexdigest()[:16]))
+def _bind(lib):
+    lib.icd_decode_resize_jpeg.restype = ctypes.c_int
+    lib.icd_decode_resize_jpeg.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint8)]
 
 
-def _load():
-    """The built library; raises ``OSError`` when it cannot be built."""
-    global _lib, _error
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if _error is not None:
-            raise OSError(_error)
-        out = library_path()
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = "{}.{}.tmp".format(out, os.getpid())
-            cxx = os.environ.get("CXX", "g++")
-            proc = subprocess.run(
-                [cxx, *CXX_FLAGS, "-o", tmp, SOURCE, "-ljpeg"],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                _error = "building {} failed: {}".format(
-                    SOURCE, proc.stderr[-2000:])
-                raise OSError(_error)
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        lib.icd_decode_resize_jpeg.restype = ctypes.c_int
-        lib.icd_decode_resize_jpeg.argtypes = [
-            ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
-            ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint8)]
-        _lib = lib
-        return lib
+_LIBRARY = NativeLibrary("icdimage", ["imageio.cpp"], _bind, libs=["-ljpeg"])
+library_path = _LIBRARY.path
+_load = _LIBRARY.load
 
 
 def available():

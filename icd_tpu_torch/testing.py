@@ -721,6 +721,8 @@ class AttentionDecoder(nn.Module):
         self.fc = nn.Linear(params.decoder_dim, self.vocab_size)
 ''',
     "vocabulary.py": '''
+from pycocotools.coco import COCO  # noqa: F401  (the reference's import)
+
 PAD_TOKEN = "<pad>"
 START_TOKEN = "<start>"
 END_TOKEN = "<end>"

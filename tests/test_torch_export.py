@@ -31,6 +31,7 @@ import pickle
 import shutil
 import subprocess
 import sys
+import types
 
 import jax
 import numpy as np
@@ -120,6 +121,36 @@ with contextlib.redirect_stdout(buf):
 out["scratch_lines"] = buf.getvalue().splitlines()
 with open({out!r}, "wb") as f:
     pickle.dump(out, f)
+"""
+
+
+# python -m icd_tpu_torch.export_reference in a fresh process, which
+# looks at sys.modules just before the reference's modules are evicted.
+_EXPORT_ALONE = """
+import json, runpy, sys
+import icd_tpu_torch.compat as compat
+
+seen = {{}}
+uninstall = compat.uninstall_reference_shims
+
+
+def uninstall_after_looking(state):
+    import icd_tpu_torch.data.coco as port_coco
+    coco = sys.modules.get("pycocotools.coco")
+    seen["vocabulary_imported"] = "vocabulary" in sys.modules
+    seen["coco_is_the_ports"] = getattr(coco, "COCO", None) is port_coco.COCO
+    uninstall(state)
+
+
+compat.uninstall_reference_shims = uninstall_after_looking
+sys.argv = ["export_reference", "src_attention_0.ckpt", {out!r},
+            "--reference_root", {ref!r}]
+runpy.run_module("icd_tpu_torch.export_reference", run_name="__main__")
+seen["foreign"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "icd_tpu"))
+seen["pycocotools_left"] = sorted(m for m in sys.modules
+                                  if m.split(".")[0] == "pycocotools")
+print(json.dumps(seen))
 """
 
 
@@ -364,3 +395,56 @@ def _decoders_close(got, want, steps):
     for g, w in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(g, w, atol=1e-2 * LR * steps)
+
+
+def test_export_reference_imports_no_jax_with_the_references_pycocotools(
+        at_root, tmp_path):
+    """The reference's vocabulary.py imports ``pycocotools.coco``
+    (the skeleton's does too): ``python -m icd_tpu_torch.export_reference``
+    with JAX_PLATFORMS set must give it the port's COCO and import
+    neither icd_tpu nor jax (the repository's ``cocoapi/PythonAPI``
+    shim would import both), and leave no pycocotools behind."""
+    out = str(tmp_path / "alone.pth.tar")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+               ICD_TPU_ROOT=at_root["root"])
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXPORT_ALONE.format(out=out,
+                                                    ref=at_root["ref"])],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert seen == {"vocabulary_imported": True, "coco_is_the_ports": True,
+                    "foreign": [], "pycocotools_left": []}
+    assert os.path.exists(out)
+
+
+def test_reference_shims_displace_and_restore_pycocotools(tmp_path,
+                                                          monkeypatch):
+    """Where ``sys.modules`` holds the repository's ``cocoapi/PythonAPI``
+    shim (icd_tpu's), the port's stand-ins take its place for the call
+    and it is back, alone, after it."""
+    from icd_tpu_torch.compat import (install_reference_shims,
+                                      uninstall_reference_shims)
+    from icd_tpu_torch.data import coco, cocoeval
+    from icd_tpu_torch.native import mask
+
+    shim = types.ModuleType("pycocotools")
+    shim.__file__ = os.path.join(REPO, "cocoapi", "PythonAPI", "pycocotools",
+                                 "__init__.py")
+    monkeypatch.setitem(sys.modules, "pycocotools", shim)
+    for name in ("pycocotools.coco", "pycocotools.mask",
+                 "pycocotools.cocoeval"):
+        monkeypatch.delitem(sys.modules, name, raising=False)
+    state = install_reference_shims(str(tmp_path))
+    import pycocotools.coco
+    import pycocotools.cocoeval
+    import pycocotools.mask
+
+    assert pycocotools.coco.COCO is coco.COCO
+    assert pycocotools.mask.encode is mask.encode
+    assert pycocotools.cocoeval.COCOeval is cocoeval.COCOeval
+    assert sys.modules["pycocotools"] is not shim
+    uninstall_reference_shims(state)
+    assert sys.modules["pycocotools"] is shim
+    assert not {"pycocotools.coco", "pycocotools.mask",
+                "pycocotools.cocoeval"} & set(sys.modules)

@@ -47,7 +47,11 @@ def test_package_imports_no_jax_and_no_icd_tpu():
     "icd_tpu_torch.export", "icd_tpu_torch.compat",
     "icd_tpu_torch.export_reference", "icd_tpu_torch.native.imageio",
     "icd_tpu_torch.utils.profiling", "icd_tpu_torch.checkpoint",
-    "icd_tpu_torch.data.pipeline"])
+    "icd_tpu_torch.data.pipeline", "icd_tpu_torch.native.mask",
+    "icd_tpu_torch.native.jsonlib", "icd_tpu_torch.native.build",
+    "icd_tpu_torch.data.coco", "icd_tpu_torch.data.cocoeval",
+    "icd_tpu_torch.captions_demo", "icd_tpu_torch.training_plots",
+    "icd_tpu_torch.validation_plots"])
 def test_training_modules_import_no_jax_and_no_icd_tpu(module):
     code = ("import sys, {}; print(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'icd_tpu', "

@@ -111,7 +111,7 @@ def test_importing_the_dataset_builds_nothing(tmp_path):
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import icd_tpu_torch.data.dataset, icd_tpu_torch.native.imageio "
-            "as m, sys; print(m._lib is None)")
+            "as m, sys; print(m._LIBRARY._lib is None)")
     env = dict(os.environ, PYTHONPATH=repo)
     env.pop("ICD_TPU_NATIVE_LOADER", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),

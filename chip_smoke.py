@@ -6,8 +6,10 @@ attention model, greedy decoding of the baseline model, the bench
 evaluation of both models (f32, --amp, --int8_encoder), the
 attention model's --use_bert training and eval with bert-base caption
 embeddings, the multi-chip path, the reference's .pth.tar /
-resnet101.pth artifacts and the training data path's aids, and the COCO
-detection eval and the notebook's teacher-forced caption demo.
+resnet101.pth artifacts and the training data path's aids, the COCO
+detection eval and the notebook's teacher-forced caption demo, and the
+port's JPEG codec with the paths that read image files (captioning,
+the val-split beam eval, training, the file-fed serving bench).
 
     python3 chip_smoke.py
 
@@ -286,6 +288,46 @@ Phases, one line of output each:
                encoder output and from the whole forward, which TF32 must
                exceed; words that agree and the captions printed; no K1
                or K2 launch.
+35. jpeg_codec  the port's JPEG codec (native/jpeg.cpp) built by g++ on
+               this host (seconds); testing.codec_corpus(), 24 files of
+               its encoder (each subsampling, progressive, restart
+               markers, grey, odd sizes, 640x480), decoded to
+               CODEC_CORPUS_DIGEST, the digest of PIL's decode of them
+               (tests/test_torch_jpeg.py): PIL's pixels with no PIL;
+               decode, decode + resize and encode ms of a 640x480 image
+               on one thread;
+36. jpeg_corpus  python -m icd_tpu_torch.make_synthetic_coco into
+               build/slice13 (200 train and 130 val images at 640x480,
+               realistic captions, 5 an image) and python -m
+               icd_tpu_torch.init --vocab True --vocab_threshold 1; the
+               attention model over that vocabulary saved as
+               checkpoints/s13_0.ckpt (full_width_models' ResNet-101 with
+               BN re-estimated on 16 corpus images, a seeded steered
+               decoder);
+37. gen_captions_file  python -m icd_tpu_torch.gen_captions on one val
+               JPEG, --encoder float --dtype f32 (TF32 off, per-step
+               beam): K1 once a step, its first call against its plain
+               version (f32 limits), the output lines equal to the same
+               CLI's on the CPU;
+38. beam_eval_files  python -m icd_tpu_torch.beam_eval --fused and the
+               per-step run over the 130 val files (int8 trunk, bf16):
+               130 results each, K2 three launches on --fused, K1 at
+               least three on the per-step run (its first call against
+               the plain version); K2 against its plain version and the
+               per-step search at this vocabulary in f32 (8 val files);
+39. train_files  python -m icd_tpu_torch.train (attention, f32, batch 32,
+               8 loader workers, one epoch: 32 steps) over the corpus's
+               files, and again fed the same images as arrays decoded
+               before it: losses equal to the bit; the median step ms of
+               each (each loss fetched, so the loop's Time column is the
+               step); no K1 or K2 launch;
+40. serving_e2e  bench_serving_e2e.run (python -m
+               icd_tpu_torch.bench_serving_e2e's workload) with
+               baseline_models' full-width models over 8 batches of 64:
+               host decode images/s by thread count, h2d GB/s, end-to-end
+               and device-only captions/s, min(host, device), the threads
+               needed, the first batch's captions equal to the resident
+               captioner's; no K1 or K2 launch.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; each must have launched its kernels, and the baseline,
@@ -4156,6 +4198,382 @@ def slice12(models, bert_state, results):
                         results)
 
 
+SLICE13_ROOT = os.path.join(BUILD_DIR, "slice13")
+S13_TRAIN, S13_VAL = 200, 130  # the corpus of the file-fed phases
+S13_NAME = "s13"
+
+
+def median_ms(fn, n=30):
+    """Median ms of ``n`` calls of ``fn`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return median(times) * 1e3
+
+
+def phase_jpeg_codec():
+    """The port's JPEG codec on this machine's host: the library built by
+    g++ (seconds; "cached" when build/ held it), testing.codec_corpus()
+    (24 JPEGs of the port's encoder: each subsampling, progressive,
+    restart markers, grey, odd sizes, 640x480) decoded to
+    CODEC_CORPUS_DIGEST, the digest of PIL's decode of the same files
+    (tests/test_torch_jpeg.py), so this machine's build gives PIL's
+    pixels without PIL; decode, decode + resize to 224x224 and encode ms
+    of one 640x480 4:2:0 quality-90 image on one thread."""
+    from icd_tpu_torch import testing
+    from icd_tpu_torch.native import jpeg
+
+    path = jpeg.library_path()
+    cached = os.path.exists(path)
+    t0 = time.perf_counter()
+    jpeg.load()
+    build_s = time.perf_counter() - t0
+    corpus = testing.codec_corpus()
+    t0 = time.perf_counter()
+    decoded = [jpeg.decode(data) for _, data in corpus]
+    corpus_decode_s = time.perf_counter() - t0
+    digest = testing.pixel_digest(decoded)
+    check(digest == testing.CODEC_CORPUS_DIGEST,
+          "codec corpus decoded to PIL's digest", digest)
+    data = dict(corpus)["420_q90"]
+    img = jpeg.decode(data)
+    check(img.shape == (480, 640, 3), "640x480 corpus file", img.shape)
+    log("jpeg_codec", library=os.path.basename(path), library_cached=cached,
+        build_s=build_s, files=len(corpus),
+        bytes=sum(len(d) for _, d in corpus), digest=digest,
+        digest_equals_pil=True, corpus_decode_s=corpus_decode_s,
+        threads=1, decode_ms_640x480=median_ms(lambda: jpeg.decode(data)),
+        decode_resize_ms_640x480=median_ms(
+            lambda: jpeg.decode_resize(data, 224, 224)),
+        encode_ms_640x480=median_ms(lambda: jpeg.encode(img, quality=90)))
+
+
+@contextlib.contextmanager
+def slice13_root():
+    """build/slice13 as ICD_TPU_ROOT (made anew); the environment
+    variables the phases set are restored after."""
+    import shutil
+
+    shutil.rmtree(SLICE13_ROOT, ignore_errors=True)
+    saved = {k: os.environ.get(k) for k in (
+        "ICD_TPU_ROOT", "ICD_TPU_LOSS_FETCH_BLOCK", "ICD_TPU_NATIVE_LOADER")}
+    os.environ["ICD_TPU_ROOT"] = SLICE13_ROOT
+    os.environ.pop("ICD_TPU_NATIVE_LOADER", None)
+    try:
+        yield SLICE13_ROOT
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def phase_jpeg_corpus(root):
+    """``python -m icd_tpu_torch.make_synthetic_coco`` into build/slice13
+    at 640x480 with realistic captions, 5 an image (S13_TRAIN train and
+    S13_VAL val images), then ``python -m icd_tpu_torch.init --vocab
+    True --vocab_threshold 1``: no PIL on this machine. Returns the
+    vocabulary."""
+    from icd_tpu_torch import init, make_synthetic_coco
+    from icd_tpu_torch.native import jpeg
+    from icd_tpu_torch.vocabulary import load_vocab
+
+    t0 = time.perf_counter()
+    quiet(make_synthetic_coco.main, [
+        root, "--train", str(S13_TRAIN), "--val", str(S13_VAL),
+        "--img_size", "640x480", "--realistic", "--captions_per_image",
+        "5"])
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quiet(init.main, ["--vocab", "True", "--vocab_threshold", "1"])
+    vocab_s = time.perf_counter() - t0
+    vocab = load_vocab()
+    nbytes, counts = 0, {}
+    for split in ("train", "val"):
+        img_dir = os.path.join(root, "cocoapi", "images", split + "2014")
+        names = sorted(os.listdir(img_dir))
+        counts[split] = len(names)
+        for name in names:
+            nbytes += os.path.getsize(os.path.join(img_dir, name))
+        with open(os.path.join(img_dir, names[0]), "rb") as f:
+            check(jpeg.size(f.read()) == (640, 480), split + " image size")
+    check(counts == {"train": S13_TRAIN, "val": S13_VAL}, "corpus files",
+          counts)
+    log("jpeg_corpus", train_images=S13_TRAIN, val_images=S13_VAL,
+        captions_per_image=5, img_size="640x480", bytes=nbytes,
+        seconds=corpus_s, images_per_s=(S13_TRAIN + S13_VAL) / corpus_s,
+        vocab=len(vocab), vocab_seconds=vocab_s)
+    return vocab
+
+
+def slice13_checkpoint(root, models, vocab):
+    """checkpoints/s13_0.ckpt: the full-width attention model over the
+    corpus's vocabulary: ``full_width_models``' ResNet-101 with its BN
+    statistics re-estimated on 16 of the corpus's train images (on the
+    noise images' statistics the shapes' grids are far from the scale
+    the steered <end> unit reads, and every caption ends at once), and a
+    decoder from a generator seeded 13 (A = H = E = 512), steered to
+    finish captions. Returns (encoder, decoder)."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch.data.dataset import decode_image
+
+    from icd_tpu_torch.checkpoint import save_checkpoint
+    from icd_tpu_torch.models.attention import (AttentionDecoderParams,
+                                                init_attention_decoder)
+    from icd_tpu_torch.params import decoder_to_jax, encoder_to_jax
+    from icd_tpu_torch.testing import steer_end
+
+    params = AttentionDecoderParams()
+    params.attention_dim, params.decoder_dim = ATT_DIM, DEC_DIM
+    params.embed_size, params.vocab = EMBED, range(len(vocab))
+    decoder = init_attention_decoder(torch.Generator().manual_seed(13),
+                                     params, device="cuda")
+    steer_end(decoder, vocab("<end>"))
+    encoder = copy.deepcopy(models[0])
+    img_dir = os.path.join(root, "cocoapi", "images", "train2014")
+    calibrate_bn(encoder, torch.as_tensor(np.stack([
+        decode_image(os.path.join(img_dir, name))
+        for name in sorted(os.listdir(img_dir))[:16]])))
+    save_checkpoint(train_args("attention", S13_NAME), 0,
+                    encoder_to_jax(encoder), decoder_to_jax(decoder),
+                    None, None, {"epoch_losses": [[1.0]]})
+    return encoder, decoder
+
+
+def val_files(root):
+    img_dir = os.path.join(root, "cocoapi", "images", "val2014")
+    return [os.path.join(img_dir, n) for n in sorted(os.listdir(img_dir))]
+
+
+def phase_gen_captions_file(root, results):
+    """``python -m icd_tpu_torch.gen_captions s13_0.ckpt <val JPEG>
+    --encoder float --dtype f32`` (TF32 off, the per-step beam, k = 5) on
+    the card and on the CPU: K1 launched once a step, its first call
+    held against its plain version (f32: ctx atol 2e-5, alpha atol
+    2e-6), and the card's output lines, the caption's words included,
+    equal to the CPU's."""
+    import torch
+
+    from icd_tpu_torch import gen_captions
+    from icd_tpu_torch.ops.fused_attention import fused_attention_reference
+
+    image = val_files(root)[0]
+    argv = [S13_NAME + "_0.ckpt", image, "--encoder", "float", "--dtype",
+            "f32"]
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    with k1_first_call() as seen:
+        _, card = quiet(gen_captions.main, argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    k1, k2 = (c.launches for c in counters)
+    check(k1 >= 1 and k2 == 0, "gen_captions_file: K1, K2 launches", k1, k2)
+    args, kw, (ctx, alpha) = seen[0]
+    ref_ctx, ref_alpha = fused_attention_reference(*args, **kw)
+    ctx_err = (ctx - ref_ctx).abs().max().item()
+    alpha_err = (alpha - ref_alpha).abs().max().item()
+    check(ctx.dtype == torch.float32 and ctx_err <= 2e-5
+          and alpha_err <= 2e-6, "gen_captions_file: K1 vs plain, f32",
+          ctx_err, alpha_err)
+    t0 = time.perf_counter()
+    _, cpu = quiet(gen_captions.main, argv + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    check(card == cpu and len(card[-1].split()) >= 3,
+          "gen_captions_file: card words equal the CPU's", card, cpu)
+    results["fused_attention"]["launches_by_path"]["gen_captions_file"] = k1
+    log("gen_captions_file", image=os.path.basename(image), k1_launches=k1,
+        k2_launches=k2, k1_ctx_err_vs_plain=ctx_err,
+        k1_alpha_err_vs_plain=alpha_err, card_s=card_s, cpu_s=cpu_s,
+        words_equal_cpu=True, caption=card[-1])
+
+
+def phase_beam_eval_files(root, model, results):
+    """``python -m icd_tpu_torch.beam_eval s13_0.ckpt --fused`` and the
+    per-step ``beam_eval`` (the CLI's defaults otherwise: the int8
+    trunk calibrated on the first val batch, bf16, batch 64) over the
+    S13_VAL val files, read by the port's codec: 130 results each, K2
+    three launches on --fused (K1 none), K1 at least three on the
+    per-step run (K2 none; its first call held against the plain
+    version with phase_k1's bf16 limits); then K2 against its plain
+    version and the per-step search at this vocabulary in f32, on the
+    f32 grid of the first 8 val files."""
+    import numpy as np
+    import torch
+
+    from icd_tpu_torch import beam_eval
+    from icd_tpu_torch.data.dataset import decode_image
+    from icd_tpu_torch.models.encoder import encoder_attention_forward
+    from icd_tpu_torch.testing import f32_products
+    from icd_tpu_torch.vocabulary import load_vocab
+
+    act_maxes = os.path.join(root, "act_maxes.npy")
+    rows = {}
+    for label, extra in (("fused", ["--fused"]), ("per_step", [])):
+        out = os.path.join(root, "eval_data", "s13_{}.json".format(label))
+        argv = [S13_NAME + "_0.ckpt", "--act_maxes", act_maxes, "--out",
+                out, "--device", "cuda"] + extra
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        with k1_first_call() as seen:
+            quiet(beam_eval.main, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1, k2 = (c.launches for c in counters)
+        with open(out) as f:
+            got = json.load(f)
+        check(len(got) == S13_VAL and all(
+            isinstance(r["caption"], str) for r in got),
+            "beam_eval_files " + label + ": results", len(got))
+        if label == "fused":
+            check(k2 == 3 and k1 == 0, "beam_eval --fused over files: K2, K1",
+                  k2, k1)
+            results["fused_beam"]["launches_by_path"][
+                "beam_eval_files/fused"] = k2
+            k1_errs = None
+        else:
+            check(k1 >= 3 and k2 == 0, "per-step beam_eval over files: K1, K2",
+                  k1, k2)
+            results["fused_attention"]["launches_by_path"][
+                "beam_eval_files/per_step"] = k1
+            k1_errs = k1_call_errors(seen)
+        rows[label] = dict(k1_launches=k1, k2_launches=k2, seconds=seconds,
+                           captions_per_s=S13_VAL / seconds,
+                           k1_errs_vs_plain=k1_errs, first=got[0])
+    f32_products()
+    imgs = torch.as_tensor(np.stack([decode_image(p) for p in
+                                     val_files(root)[:8]])).to("cuda")
+    with torch.inference_mode():
+        grid = encoder_attention_forward(model[0], imgs,
+                                         compute_dtype=torch.float32)
+        vocab = load_vocab()
+        _, err, loop_err = k2_against_plain(
+            model[1], grid, BEAMS, vocab("<start>"), vocab("<end>"), 50,
+            "beam_eval_files f32")
+    log("beam_eval_files", images=S13_VAL, batch=IMAGES, vocab=len(vocab),
+        k2_alpha_err_vs_plain_f32=err, k2_alpha_err_vs_loop_f32=loop_err,
+        **rows)
+
+
+def phase_train_files(root, results):
+    """``python -m icd_tpu_torch.train`` (attention, f32, batch 32, one
+    epoch over the S13_TRAIN x 5 captions, 8 loader workers) over the
+    corpus's files, read by the port's codec through ``DataLoader`` and
+    ``device_prefetch``; then the same run fed the same images as arrays
+    decoded before it (``COCODataset._load_img`` served from memory):
+    every step's loss equal to the bit. Each step's loss is fetched
+    (ICD_TPU_LOSS_FETCH_BLOCK=1), so the train loop's Time column is the
+    step: its median from files beside its median from arrays (the
+    first step left out). Neither K1 nor K2 launches."""
+    from icd_tpu_torch import train
+    from icd_tpu_torch.checkpoint import load_checkpoint, unpack_checkpoint
+    from icd_tpu_torch.data.dataset import COCODataset
+
+    os.environ["ICD_TPU_LOSS_FETCH_BLOCK"] = "1"
+
+    def run(name):
+        argv = [name, "--model", "attention", "--batch_size",
+                str(TRAIN_BATCH), "--epochs", "1", "--workers", "8",
+                "--print_freq", "1", "--device", "cuda"]
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        _, lines = quiet(train.main, argv)
+        wall = time.perf_counter() - t0
+        check_no_kernel(counters, "train_files", results)
+        times = [float(t) * 1e3 for t in re.findall(r"Time: ([0-9.]+)",
+                                                    "\n".join(lines))]
+        losses = unpack_checkpoint(load_checkpoint(
+            name=name + "_0.ckpt", verbose=False))[-1]["epoch_losses"][-1]
+        return dict(losses=losses, step_ms=median(times[1:]),
+                    steps=len(times), wall_s=wall)
+
+    files = run("s13_files")
+    dataset = COCODataset("train", vocab=object())
+    t0 = time.perf_counter()
+    arrays = {i: dataset._load_img(i) for i in dataset.img_ids}
+    decode_s = time.perf_counter() - t0
+    load = COCODataset._load_img
+    COCODataset._load_img = lambda self, img_id: arrays[img_id]
+    try:
+        memory = run("s13_arrays")
+    finally:
+        COCODataset._load_img = load
+    steps = math.ceil(S13_TRAIN * 5 / TRAIN_BATCH)
+    check(len(files["losses"]) == len(memory["losses"]) == steps
+          == files["steps"], "train_files steps", len(files["losses"]),
+          steps)
+    check(all(math.isfinite(v) for v in files["losses"]),
+          "train_files losses finite")
+    check(files["losses"] == memory["losses"],
+          "train_files: losses from files equal to the bit those from "
+          "arrays", files["losses"][:3], memory["losses"][:3])
+    log("train_files", steps=steps, batch=TRAIN_BATCH, workers=8,
+        losses_bit_equal=True, first_loss=files["losses"][0],
+        last_loss=files["losses"][-1],
+        step_ms_from_files=files["step_ms"],
+        step_ms_from_arrays=memory["step_ms"],
+        wall_s_from_files=files["wall_s"],
+        wall_s_from_arrays=memory["wall_s"],
+        decode_train_images_s=decode_s, train_images=len(arrays))
+
+
+def phase_serving_e2e(models, results):
+    """``bench_serving_e2e.run`` (the workload of ``python -m
+    icd_tpu_torch.bench_serving_e2e``: 256 640x480 quality-90 JPEGs of
+    the port's encoder, batch 64, the static-int8 baseline captioner
+    with the W8A8 decoder, V = 10,000, 25 steps) with baseline_models'
+    full-width models, 8 batches end to end: the host decode rate by
+    thread count, h2d GB/s, end-to-end and device-only captions/s,
+    min(host, device), the threads needed, the first batch's captions
+    equal to the resident captioner's; no K1 or K2 launch."""
+    from icd_tpu_torch import bench_serving_e2e
+
+    base = baseline_models(models)
+    t0 = time.perf_counter()
+    blobs = bench_serving_e2e.make_jpegs(bench_serving_e2e.BATCH * 4, 0)
+    make_s = time.perf_counter() - t0
+    counters = zero_counters()
+    sweep, summary = bench_serving_e2e.run(base[0], base[1], blobs, "cuda",
+                                           n_batches=8)
+    check_no_kernel(counters, "serving_e2e", results)
+    check(summary["e2e_captions_equal_resident"],
+          "serving_e2e: end-to-end captions equal the resident batch's")
+    check(all(v > 0 for v in (summary["host_images_per_s"],
+                              summary["e2e_captions_per_s"],
+                              summary["device_captions_per_s"],
+                              summary["h2d_GB_per_s"])),
+          "serving_e2e rates", summary)
+    log("serving_e2e", jpegs=len(blobs), make_jpegs_s=make_s,
+        jpeg_bytes=sum(len(b) for b in blobs), sweep=sweep, **summary)
+
+
+def slice13(models, results):
+    """The phases of the port's JPEG codec and the file-fed paths."""
+    phase_jpeg_codec()
+    with slice13_root() as root:
+        vocab = phase_jpeg_corpus(root)
+        model = slice13_checkpoint(root, models, vocab)
+        phase_gen_captions_file(root, results)
+        phase_beam_eval_files(root, model, results)
+        phase_train_files(root, results)
+    phase_serving_e2e(models, results)
+
+
 def main():
     import torch
 
@@ -4206,6 +4624,7 @@ def main():
     phase_mesh_gloo_shared(results)
     slice11(models, gen, results)
     slice12(models, (bert, tokenizer, vocab), results)
+    slice13(models, results)
     log("total", seconds=time.perf_counter() - STARTED)
 
     k1 = dict(name="fused_attention", route="cuda",

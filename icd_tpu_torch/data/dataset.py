@@ -7,10 +7,12 @@ mapping when its *character* length is at most ``caption_max_len``
 ``(img, caption ids)`` in train mode, and in val mode also the image
 path and every caption of the image (dataset.py:66-71); a caption is
 ``word_tokenize(caption.lower())`` wrapped in ``<start>`` / ``<end>``.
-Images are decoded with PIL and resized to 224 x 224 BILINEAR as uint8
-NHWC, as the JAX package's default loader does. PIL is imported inside
-the decode function only: a machine that runs the card path from
-tensors (``chip_smoke.py``) needs no PIL.
+Images are decoded and resized to 224 x 224 BILINEAR as uint8 NHWC with
+the pixels of the JAX package's default loader (PIL): a file that starts
+with JPEG's SOI marker is read by the port's own codec
+(``native/jpeg.py``), whose decode and resize equal PIL's to the bit, so
+JPEGs need no PIL and no libjpeg; any other format goes to PIL, imported
+in the call.
 
 The JAX package's host-side speed aids, each leaving the pixels (and so
 the losses) as they were:
@@ -19,9 +21,10 @@ the losses) as they were:
    across samples (one sample per caption reads each COCO image ~5
    times an epoch, dataset.py:44-57);
  - ``ICD_TPU_NATIVE_LOADER=1``: JPEGs decoded by the native libjpeg
-   loader (``native/imageio.py``, built at first use) instead of PIL;
-   its pixels differ from PIL's by less than one level on average, so it
-   is opt-in; where it cannot be built or a decode fails, PIL decodes;
+   loader (``native/imageio.py``, built at first use) instead; its
+   pixels differ from PIL's by less than one level on average, so it is
+   opt-in; where it cannot be built or a decode fails, ``decode_image``
+   decodes;
  - ``return_ids``: train items carry their image id, which the
    loader's collate puts in ``img_ids`` (``pipeline.DeviceImageCache``).
 """
@@ -30,6 +33,7 @@ import os
 
 import numpy as np
 
+from ..native import jpeg
 from ..pathconf import PathConfig
 from ..vocabulary import END_TOKEN, START_TOKEN, load_vocab
 from .coco import COCO
@@ -38,10 +42,34 @@ from .tokenize import word_tokenize
 IMG_SIZE = 224  # transforms.Resize((224, 224)) in every reference entry point.
 
 
-def decode_image(path, size=IMG_SIZE):
-    """(size, size, 3) uint8 RGB: PIL decode, BILINEAR resize."""
-    from PIL import Image
+_MAGIC = ((b"\x89PNG", "PNG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 
+
+def _format_name(data):
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    for magic, name in _MAGIC:
+        if data.startswith(magic):
+            return name
+    return "unknown"
+
+
+def decode_image(path, size=IMG_SIZE):
+    """(size, size, 3) uint8 RGB equal to PIL's
+    ``Image.open(path).convert("RGB").resize((size, size), BILINEAR)``: a
+    JPEG (the bytes start with FF D8) through the port's codec, any other
+    format through PIL."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if jpeg.is_jpeg(data):
+        return jpeg.decode_resize(data, size, size)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "{} is a {} file, and only JPEG is read without PIL".format(
+                path, _format_name(data))) from e
     img = Image.open(path).convert("RGB")
     img = img.resize((size, size), Image.BILINEAR)
     return np.asarray(img, dtype=np.uint8)
@@ -132,7 +160,7 @@ class COCODataset:
             with open(path, "rb") as f:
                 arr = self._native_decode(f.read(), self.img_size,
                                           self.img_size)
-        if arr is None:  # not a JPEG, or the decode failed: PIL
+        if arr is None:  # not a JPEG, or the decode failed
             arr = decode_image(path, self.img_size)
         return arr
 

@@ -22,11 +22,11 @@ import numpy as np
 
 
 def load_img(path):
-    """(1, 224, 224, 3) float32 NHWC in [0, 1] (gen_captions.py:39-47)."""
-    from PIL import Image
+    """(1, 224, 224, 3) float32 NHWC in [0, 1] (gen_captions.py:39-47):
+    PIL's pixels, from the port's codec for a JPEG (no PIL needed)."""
+    from .data.dataset import decode_image
 
-    img = Image.open(path).convert("RGB").resize((224, 224), Image.BILINEAR)
-    arr = np.asarray(img, np.float32) / 255.0
+    arr = np.asarray(decode_image(path, 224), np.float32) / 255.0
     return arr[None]
 
 

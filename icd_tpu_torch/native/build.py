@@ -21,22 +21,25 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 class NativeLibrary:
     """``lib<name>_<hash>.so`` from ``sources`` (file names in this
-    directory), linked with ``libs``; ``bind(lib)`` declares the ctypes
-    signatures once it is loaded. ``load()`` builds and loads it on its
-    first call and raises ``OSError`` with g++'s error output when the
-    build fails (and again on every later call, without rebuilding)."""
+    directory), compiled with ``flags`` beside ``CXX_FLAGS`` and linked
+    with ``libs``; ``bind(lib)`` declares the ctypes signatures once it
+    is loaded. ``load()`` builds and loads it on its first call and
+    raises ``OSError`` with g++'s error output when the build fails (and
+    again on every later call, without rebuilding)."""
 
-    def __init__(self, name, sources, bind, libs=()):
+    def __init__(self, name, sources, bind, libs=(), flags=()):
         self.name = name
         self.sources = [os.path.join(_DIR, s) for s in sources]
         self.libs = tuple(libs)
+        self.flags = tuple(flags)
         self._bind = bind
         self._lib = None
         self._error = None
         self._lock = threading.Lock()
 
     def path(self):
-        digest = hashlib.sha256(" ".join(CXX_FLAGS + self.libs).encode())
+        digest = hashlib.sha256(
+            " ".join(CXX_FLAGS + self.flags + self.libs).encode())
         for source in self.sources:
             with open(source, "rb") as f:
                 digest.update(f.read())
@@ -54,7 +57,8 @@ class NativeLibrary:
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = "{}.{}.tmp".format(out, os.getpid())
                 cxx = os.environ.get("CXX", "g++")
-                cmd = [cxx, *CXX_FLAGS, "-o", tmp, *self.sources, *self.libs]
+                cmd = [cxx, *CXX_FLAGS, *self.flags, "-o", tmp,
+                       *self.sources, *self.libs]
                 try:
                     proc = subprocess.run(cmd, capture_output=True,
                                           text=True)

@@ -6,7 +6,8 @@ The library is built at the first call of ``decode_resize_jpeg``, with
 at the repository root (``native/build.py``; its name carries a hash of
 the source and the flags). Importing this module builds nothing.
 ``available()`` says whether the build succeeded; without ``g++`` or
-libjpeg it fails, and ``data/dataset.py`` decodes with PIL instead.
+libjpeg it fails, and ``data/dataset.py`` decodes with the port's own
+codec (``native/jpeg.py``) instead.
 """
 
 import ctypes

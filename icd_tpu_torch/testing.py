@@ -10,13 +10,21 @@ logits, so every beam search would run to its step limit. ``steer_end``
 gives one LSTM unit the job of counting steps and makes it the only
 input of the ``<end>`` logit, so captions end after a number of steps
 that depends on the image.
+
+``codec_corpus`` is a seeded set of JPEGs that the port's encoder writes
+(each subsampling, progressive, restart markers, grey, odd sizes,
+640x480); ``CODEC_CORPUS_DIGEST`` is the ``pixel_digest`` of PIL's
+decode of it, which ``tests/test_torch_jpeg.py`` proves and
+``chip_smoke.py`` holds the card machine's build of the codec to.
 """
 
 import contextlib
 import copy
+import hashlib
 import math
 from unittest import mock
 
+import numpy as np
 import torch
 
 from .models.attention import AttentionDecoderParams, init_attention_decoder
@@ -841,3 +849,69 @@ def write_reference_skeleton(root, depths=None, widths=None):
         with open(path, "w") as f:
             f.write(text.lstrip("\n"))
     return root
+
+
+# (name, (width, height), grey, encode keywords) of codec_corpus.
+CODEC_CORPUS = [
+    ("420_q75", (640, 480), False, {}),
+    ("420_q90", (640, 480), False, dict(quality=90)),
+    ("422_q75", (640, 480), False, dict(subsampling="4:2:2")),
+    ("444_q95", (640, 480), False, dict(subsampling="4:4:4", quality=95)),
+    ("440_q75", (640, 480), False, dict(subsampling="4:4:0")),
+    ("420_progressive", (640, 480), False, dict(progressive=True)),
+    ("444_progressive", (640, 480), False,
+     dict(subsampling="4:4:4", quality=90, progressive=True)),
+    ("420_restart_blocks", (640, 480), False,
+     dict(restart_marker_blocks=4)),
+    ("420_progressive_restart_rows", (640, 480), False,
+     dict(progressive=True, restart_marker_rows=2)),
+    ("420_optimize", (640, 480), False, dict(optimize=True)),
+    ("grey", (640, 480), True, {}),
+    ("grey_progressive", (17, 9), True, dict(progressive=True)),
+    ("grey_1x1", (1, 1), True, {}),
+    ("420_1x1", (1, 1), False, {}),
+    ("420_17x9", (17, 9), False, {}),
+    ("440_17x9", (17, 9), False, dict(subsampling="4:4:0")),
+    ("422_17x9_progressive", (17, 9), False,
+     dict(subsampling="4:2:2", progressive=True)),
+    ("444_9x17", (9, 17), False, dict(subsampling="4:4:4")),
+    ("420_481x641_restart", (481, 641), False,
+     dict(restart_marker_blocks=7)),
+    ("440_33x47_progressive", (33, 47), False,
+     dict(subsampling="4:4:0", progressive=True)),
+    ("420_3x5", (3, 5), False, {}),
+    ("422_4x4_q5", (4, 4), False, dict(subsampling="4:2:2", quality=5)),
+    ("420_64x48_q5", (64, 48), False, dict(quality=5)),
+    ("444_64x48_q100", (64, 48), False,
+     dict(subsampling="4:4:4", quality=100)),
+]
+CODEC_CORPUS_DIGEST = (
+    "e991835b1f32e7c5f097609769838fbf7807a52afa3580d13b46d0ea2735af81")
+
+
+def codec_corpus(seed=13):
+    """[(name, JPEG bytes)] of ``CODEC_CORPUS``: low-frequency content
+    (a seeded 1/8-size array resized BILINEAR) plus seeded noise of
+    +-24 levels, encoded by the port's codec."""
+    from .native import jpeg
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, (w, h), grey, kwargs in CODEC_CORPUS:
+        small = rng.integers(0, 256, (max(1, h // 8), max(1, w // 8), 3),
+                             dtype=np.uint8)
+        img = jpeg.resize_bilinear(small, w, h).astype(np.int16)
+        img += rng.integers(-24, 25, img.shape, dtype=np.int16)
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        out.append((name, jpeg.encode(img[..., 0] if grey else img,
+                                      **kwargs)))
+    return out
+
+
+def pixel_digest(arrays):
+    """sha256 over each (H, W, 3) uint8 array's shape and bytes."""
+    digest = hashlib.sha256()
+    for arr in arrays:
+        digest.update(repr(tuple(arr.shape)).encode())
+        digest.update(np.ascontiguousarray(arr, np.uint8).tobytes())
+    return digest.hexdigest()

@@ -34,13 +34,19 @@ step's limits. The multi-chip path: three f32 steps on a one-rank NCCL
 mesh equal, to the bit, the same steps without a mesh (the mesh path
 keeps the same operations); vocab-parallel gradients on CUDA tensors
 through two gloo ranks sharing the card within 1e-6 of the unsplit
-decoder's.
+decoder's. The port's JPEG codec, built by the card machine's g++,
+decodes ``testing.codec_corpus()`` to ``CODEC_CORPUS_DIGEST`` (PIL's
+pixels, proven on the CPU by tests/test_torch_jpeg.py), and
+``python -m icd_tpu_torch.bench_serving_e2e`` runs 2 batches on the card
+with the end-to-end captions equal to the resident batch's.
 """
 
 import contextlib
 import copy
 import functools
+import json
 import math
+import os
 
 import pytest
 import torch
@@ -1197,3 +1203,29 @@ def test_async_checkpoint_snapshot_on_card(card, tmp_path, monkeypatch):
         assert (got["decoder"][key]["w"] == want_dec[key]["w"]).all()
         assert (got_mu["decoder"][key]["w"]
                 == want_mu["decoder"][key]["w"]).all()
+
+
+def test_codec_corpus_decodes_to_pils_digest(card):
+    from icd_tpu_torch.native import jpeg
+    from icd_tpu_torch.testing import (CODEC_CORPUS_DIGEST, codec_corpus,
+                                       pixel_digest)
+
+    corpus = codec_corpus()
+    assert pixel_digest([jpeg.decode(data) for _, data in corpus]) == (
+        CODEC_CORPUS_DIGEST)
+
+
+def test_bench_serving_e2e_on_the_card(card, capsys):
+    from icd_tpu_torch import bench_serving_e2e
+
+    bench_serving_e2e.main(["--batches", "2"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    summary = json.loads(lines[-1])
+    assert summary["e2e_captions_equal_resident"] is True
+    assert summary["batches"] == 2 and summary["batch"] == 64
+    for key in ("h2d_GB_per_s", "host_images_per_s", "e2e_captions_per_s",
+                "device_captions_per_s", "mfu"):
+        assert summary[key] > 0, key
+    assert summary["card"].startswith("NVIDIA")
+    assert len(lines) - 1 == len(bench_serving_e2e.thread_counts(
+        os.cpu_count()))

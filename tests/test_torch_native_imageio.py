@@ -4,8 +4,9 @@ icd_tpu's, pixel for pixel (tolerance: none; the same source and flags
 give the same bytes), on JPEGs whose sizes take libjpeg's 1/1, 1/2, 1/4
 and 1/8 DCT scaling, a grayscale one and a progressive one; failures
 give None; the dataset decodes with it only under
-``ICD_TPU_NATIVE_LOADER`` and falls back to PIL, and importing the
-dataset builds nothing. Skips only where ``g++`` or ``jpeglib.h`` is
+``ICD_TPU_NATIVE_LOADER`` and falls back to ``decode_image`` (the
+port's own codec, PIL's pixels), and importing the dataset builds
+nothing. Skips only where ``g++`` or ``jpeglib.h`` is
 absent."""
 
 import io
@@ -79,7 +80,8 @@ def test_dataset_uses_the_native_loader_only_when_asked(use_coco_root,
                                                         monkeypatch):
     """Under ICD_TPU_NATIVE_LOADER the dataset's pixels are the native
     loader's (equal to icd_tpu's dataset under the same variable); else
-    PIL's. A file that is not a JPEG is decoded by PIL either way."""
+    ``decode_image``'s. A file that is not a JPEG is decoded by
+    ``decode_image`` either way."""
     _toolchain()
     import icd_tpu.data.dataset as jax_dataset
     from icd_tpu_torch.data import dataset

@@ -10,7 +10,9 @@ icd_tpu (f32, CPU, a small encoder and decoder).
   ``.ckpt`` that ``icd_tpu`` saved with a real optax state, in a
   subprocess that never imports jax or optax, with the float encoder
   and with the int8 one (calibrated on the image, the default of both
-  CLIs) as the JAX CLI's ``_beam_search_int8`` does.
+  CLIs) as the JAX CLI's ``_beam_search_int8`` does; on the fixture JPEG
+  (read by the port's own codec) its words equal those of the JAX
+  package's ``gen_captions.py`` (PIL) run on the same file.
 """
 
 import argparse
@@ -145,6 +147,14 @@ def test_gen_captions_cli_on_icd_tpu_checkpoint(use_coco_root):
     lines = _gen_captions(root, image, "float")
     assert expected in lines
     assert found == ("(beam search did not complete a caption)" not in lines)
+    jax_cli = subprocess.run(
+        [sys.executable, os.path.join(REPO, "gen_captions.py"),
+         "torchport_0.ckpt", image, "--encoder", "float", "--dtype", "f32"],
+        cwd=REPO, env=dict(os.environ, ICD_TPU_ROOT=root,
+                           JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=300)
+    assert jax_cli.returncode == 0, jax_cli.stderr
+    assert jax_cli.stdout.strip().splitlines() == lines[:-1]  # no FOREIGN
 
 
 def test_checkpoint_optax_state_is_inert(use_coco_root):

@@ -2,7 +2,8 @@
 """Drive icd_tpu_torch's paths on one CUDA card: beam search (float and
 int8 encoder) and greedy decoding (float and W8A8 decoder) of the
 attention model, greedy decoding of the baseline model, the bench
-(``python -m icd_tpu_torch.bench``), training and teacher-forced
+(``python -m icd_tpu_torch.bench``) and the six workload benches
+(``python -m icd_tpu_torch.bench_*``), training and teacher-forced
 evaluation of both models (f32, --amp, --int8_encoder), the
 attention model's --use_bert training and eval with bert-base caption
 embeddings, the multi-chip path, the reference's .pth.tar /
@@ -135,6 +136,23 @@ Phases, one line of output each:
                the same models at bench.py's shapes (batch 64, 224x224,
                25 steps, 10 repeats, 3 trials): the two JSON lines it
                prints, for each mode.
+17b. benches   each workload bench's measure (python -m
+               icd_tpu_torch.bench_{int8,attention,beam,fused_beam,train,
+               bert}) once at full width with 2 repeats and 1 trial (a
+               cut of depth; the benches run 3 trials of 4 to 10), on
+               the models above where the shapes are the bench's: its
+               rows in its JAX tool's order, and its last line; K1 once
+               a decode step on bench_attention's rows (<end> pinned)
+               and on the per-step rows of bench_beam and
+               bench_fused_beam, K2 once a search on bench_fused_beam's
+               fused row (51 steps, <end> pinned), whose first search is
+               held against K2's plain version (bf16; in f32 phase_k2's
+               gate, and the raw history: step 1's alphas on every row,
+               and every step's parents and alphas within 5e-6 for at
+               least 7/8 of the images, the rest split by f32 rounding
+               at near ties); no launch on bench_int8, bench_train (both
+               families) or bench_bert; then K2 alone at the 51-step
+               budget beside its bound;
 18. train_step_f32  one train step of full_width_models' attention model,
                f32, TF32 off, dropout 0, batch 4, caption length 12,
                seeded Zipf captions over V=10,000 (testing.seeded_captions),
@@ -391,33 +409,11 @@ def zero_counters():
 
 
 def k2_bound_ms(ops, k, steps):
-    """Least time for one K2 search of ``steps`` steps on an H100: enc and
-    att_enc read once a step (no chip memory holds them at batch 64), the
-    weights, h0 and c0 read once, of the embedding only the rows gathered
-    (one a beam a step, at most the whole table), the raw alphas written
-    once; the step's products at the peak of the grid's dtype."""
-    from icd_tpu_torch import k1_bench
+    """Least time for one K2 search of ``steps`` steps on an H100, and
+    what bounds it (``ops.fused_beam.bound_ms``)."""
+    from icd_tpu_torch.ops.fused_beam import bound_ms
 
-    enc, att_enc, emb = ops["enc"], ops["att_enc"], ops["emb"]
-    b, p, d = enc.shape
-    a, hd = ops["wd"].shape
-    v, e = emb.shape
-    rows = b * k
-    per_step = sum(t.numel() * t.element_size() for t in (enc, att_enc))
-    once = sum(t.numel() * t.element_size() for name, t in ops.items()
-               if name not in ("enc", "att_enc", "emb"))
-    gathered = min(v, rows * steps) * e * emb.element_size()
-    nbytes = steps * (per_step + rows * p * 4) + once + gathered
-    flops = steps * (2 * rows * hd * (a + d)  # att_dec and gate
-                     + 4 * rows * p * a  # scores
-                     + 2 * rows * p * d  # context
-                     + 2 * rows * (e + d + hd) * 4 * hd  # LSTM gates
-                     + 2 * rows * hd * v)  # fc
-    peak = (k1_bench.BF16_FLOP_PER_S if enc.element_size() == 2
-            else k1_bench.F32_FLOP_PER_S)
-    by_bytes, by_ops = nbytes / k1_bench.HBM_BYTES_PER_S, flops / peak
-    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
-                                         else "operations")
+    return bound_ms(ops, k, steps)
 
 
 def phase_build():
@@ -1638,6 +1634,203 @@ def phase_bench(base, results):
         print(json.dumps(result), flush=True)
 
 
+BENCH_REPEATS, BENCH_TRIALS = 2, 1  # the benches phase's cut of depth
+
+
+@contextlib.contextmanager
+def k2_first_search(module):
+    """Keep the first K2 search that ``module`` runs (its decoder, grid,
+    other arguments and output; the search changes none of them) while
+    the path runs through the kernel, to hold it against the plain
+    version after."""
+    kernel = module.beam_search_fused
+    seen = []
+
+    def probe(decoder, grid, *args):
+        out = kernel(decoder, grid, *args)
+        if not seen:
+            seen.append((decoder, grid, args, out))
+        return out
+
+    module.beam_search_fused = probe
+    try:
+        yield seen
+    finally:
+        module.beam_search_fused = kernel
+
+
+def bench_rows(name, rows, results, labels):
+    """Check a bench's rows (labels in its tool's order, positive times)
+    and print its last line; returns K1's and K2's launches in it."""
+    import torch
+
+    from icd_tpu_torch.utils.benchmarking import result
+
+    torch.cuda.synchronize()
+    check([r["label"] for r in rows] == list(labels)
+          and all(r["ms"] > 0 and math.isfinite(r["rate"]) for r in rows),
+          name + " rows", [(r["label"], r["ms"]) for r in rows])
+    print(json.dumps(result(name, rows, "cuda")), flush=True)
+    k1 = sum(r["k1_launches"] for r in rows)
+    k2 = sum(r["k2_launches"] for r in rows)
+    results["fused_attention"]["launches_by_path"]["benches/" + name] = k1
+    results["fused_beam"]["launches_by_path"]["benches/" + name] = k2
+    return k1, k2
+
+
+def k2_raw_against_plain(decoder, grid, max_steps, what):
+    """One K2 launch and its plain version on the same operands, in f32
+    (TF32 off), their raw outputs: the steps equal; step 1's alphas (no
+    selection made yet) within phase_k2's 5e-6 on every row; and for at
+    least 7/8 of the images every step's parents equal and alphas within
+    5e-6. The rest may split: the two sum in other orders (about 1e-6
+    apart), and over 64 images x 51 steps x the top-k's ranks a few
+    candidates lie that near each other, so rounding orders them. Returns
+    (images whose history is equal, each split image's first step with
+    other parents, the alpha error on equal images)."""
+    import torch
+
+    from icd_tpu_torch.ops import fused_beam
+    from icd_tpu_torch.testing import f32_products
+
+    f32_products()
+    with torch.no_grad():
+        ops = fused_beam._operands(decoder, grid)
+    raw = fused_beam._launch(ops, BEAMS, START_ID, END_ID, max_steps)
+    ref = fused_beam._search_plain(ops, BEAMS, START_ID, END_ID, max_steps)
+    steps = raw["steps"]
+    check(steps == ref["steps"], what + " steps", steps, ref["steps"])
+    rows = slice(1, steps + 1)
+    step1 = (raw["alpha"][1] - ref["alpha"][1]).abs().max().item()
+    check(step1 <= 5e-6, what + " K2 vs plain, step 1's alphas", step1)
+    parents = (raw["parent"][rows].long() == ref["parent"][rows].long()).all(
+        dim=2)  # (steps, images)
+    alpha_err = (raw["alpha"][rows] - ref["alpha"][rows]).abs().amax(
+        dim=(2, 3))
+    same = parents.all(dim=0) & (alpha_err <= 5e-6).all(dim=0)
+    n = grid.shape[0]
+    splits = ((~parents).int().argmax(dim=0) + 1)[~same].tolist()
+    check(int(same.sum()) >= n - n // 8, what + " K2 vs plain: images "
+          "with equal histories", int(same.sum()), n, splits)
+    return int(same.sum()), splits, alpha_err[:, same].max().item()
+
+
+def phase_benches(models, base, results):
+    """Each workload bench's ``measure`` once at full width, with
+    BENCH_REPEATS repeats and BENCH_TRIALS trials (the benches run 3
+    trials of 4 to 10 repeats: a cut of depth), on this script's models
+    where the bench's shapes are theirs. Checks each bench's rows and
+    prints its last line; K1 launched on the attention and beam rows,
+    K2 once a search on bench_fused_beam's fused row (that row's first
+    search held against K2's plain version: in bf16 on the same inputs,
+    and on them in f32 by phase_k2's gate, k2_against_plain, and by the
+    raw history, k2_raw_against_plain), neither on bench_int8,
+    bench_train or bench_bert. Then K2 alone at the 51-step budget (CUDA
+    events, L2 emptied, the card asleep while the host sets each launch
+    up) beside its bound."""
+    import torch
+
+    from icd_tpu_torch import (bench, bench_attention, bench_beam,
+                               bench_bert, bench_fused_beam, bench_int8,
+                               bench_train)
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.ops import fused_beam
+    from icd_tpu_torch.ops.fused_beam import beam_search_fused_reference
+
+    depth = dict(repeats=BENCH_REPEATS, trials=BENCH_TRIALS, device="cuda")
+    imgs = bench.images(IMAGES, 224, "cuda", seed=2)
+    seconds, launches = {}, {}
+
+    def run(name, fn, labels):
+        zero_counters()
+        t0 = time.perf_counter()
+        rows = fn()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = bench_rows(name, rows, results, labels)
+        return rows
+
+    rows = run("bench_int8", lambda: bench_int8.measure(*base, imgs, **depth),
+               bench_int8.LABELS)
+    check(launches["bench_int8"] == (0, 0)
+          and all(r["steps"] == bench_int8.DECODE_LEN for r in rows),
+          "bench_int8: no kernel, <end> pinned", launches["bench_int8"])
+
+    pinned = copy.deepcopy(models[1])
+    bench.pin_end(pinned, END_ID)
+    rows = run("bench_attention", lambda: bench_attention.measure(
+        models[0], pinned, imgs, **depth), bench_attention.LABELS)
+    for r in rows:
+        check(r["steps"] == bench_attention.DECODE_LEN
+              and r["k1_launches"] == r["steps"] * r["units"]
+              and r["k2_launches"] == 0,
+              "bench_attention: K1 once a step", r)
+    del pinned
+
+    rows = run("bench_beam", lambda: bench_beam.measure(
+        models[0], models[1], imgs, **depth), bench_beam.LABELS)
+    for r in rows:
+        check(r["k1_launches"] >= min(r["steps"]) * r["units"] > 0
+              and r["k2_launches"] == 0, "bench_beam: K1 once a step", r)
+
+    dec16 = bench_fused_beam.decoder("cuda")
+    grid = bench_fused_beam.grids(IMAGES, "cuda")
+    with k2_first_search(bench_fused_beam) as seen:
+        rows = run("bench_fused_beam", lambda: bench_fused_beam.measure(
+            dec16, grid, **depth), bench_fused_beam.LABELS)
+    fused, *loops = rows
+    check(fused["k2_launches"] == fused["units"] and fused["k1_launches"] == 0
+          and fused["steps"] == [51], "bench_fused_beam: one K2 launch a "
+          "search, 51 steps", fused)
+    for r in loops:
+        check(r["k1_launches"] == 51 * r["units"] and r["k2_launches"] == 0
+              and r["steps"] == [51], "bench_fused_beam: K1 once a step", r)
+    dec, first_grid, args, out = seen[0]
+    ref = beam_search_fused_reference(dec, first_grid, *args)
+    for key in ("seq", "seq_len", "found"):
+        check(torch.equal(out[key], ref[key]),
+              "bench_fused_beam: first search vs plain, bf16", key)
+    dec32, grid32 = copy.deepcopy(dec).float(), first_grid.float()
+    k2_against_plain(dec32, grid32, BEAMS, START_ID, END_ID, 51,
+                     "bench_fused_beam f32")
+    k2_same, k2_splits, k2_err = k2_raw_against_plain(
+        dec32, grid32, 51, "bench_fused_beam f32")
+    del dec32, grid32
+    with torch.no_grad():
+        ops = fused_beam._operands(dec, first_grid)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    k2_ms = time_ms(lambda: fused_beam._start(ops, BEAMS, START_ID, END_ID,
+                                              51),
+                    iters=10, flush=flush, settle=True)
+    k2_bound, k2_bound_by = k2_bound_ms(ops, BEAMS, 51)
+    del dec16, grid, dec, first_grid, ops, flush, seen
+
+    train_imgs = bench.images(TRAIN_BATCH, 224, "cuda", seed=2)
+    caps = bench_train.captions(TRAIN_BATCH, TRAIN_LEN, VOCAB, "cuda")
+    for name, family, attention in (
+            ("bench_train", train_baseline_models(models), False),
+            ("bench_train --attention", models, True)):
+        run(name, lambda: bench_train.measure(
+            *family, train_imgs, caps, attention, **depth),
+            bench_train.LABELS)
+        check(launches[name] == (0, 0), name + ": no kernel", launches[name])
+
+    vocab, bert, tokenizer = bench_bert.vocab_and_bert()
+    decoder = bench_bert.decoder(vocab, BERT_DIM, "cuda")
+    run("bench_bert", lambda: bench_bert.measure(
+        models[0], decoder, bert, tokenizer, vocab,
+        bench_bert.host_batches(len(vocab), BENCH_REPEATS), device="cuda"),
+        bench_bert.LABELS)
+    check(launches["bench_bert"] == (0, 0), "bench_bert: no kernel",
+          launches["bench_bert"])
+    log("benches", repeats=BENCH_REPEATS, trials=BENCH_TRIALS,
+        seconds=seconds, launches=launches,
+        k2_first_search_f32_images_equal_history=k2_same,
+        k2_first_search_f32_split_steps=k2_splits,
+        k2_first_search_f32_alpha_err_vs_plain=k2_err,
+        k2_ms_51_steps=k2_ms, k2_bound_ms_51_steps=k2_bound,
+        k2_bound_by=k2_bound_by, k2_share_of_bound=k2_bound / k2_ms)
+
+
 # Training shapes: tools/bench_train.py:24-26.
 TRAIN_BATCH, TRAIN_LEN, TRAIN_BATCHES = 32, 25, 20
 RESNET101_GFLOP = 15.6  # forward per 224x224 image (tools/bench_train.py:30)
@@ -1646,17 +1839,10 @@ F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
 def decoder_train_gflop(b, t, embed=EMBED):
     """Model GFLOP of one attention-decoder forward + backward, counted as
-    tools/bench_train.py:40-70 counts them: 3x the forward's products
-    (the hoisted enc_att, init h and c, per decode step att_dec, scores,
-    context, f_beta and the LSTM, then the vocab product)."""
-    td = t - 1
-    fwd = (2 * b * PIX * ENC_DIM * ATT_DIM
-           + 2 * 2 * b * ENC_DIM * DEC_DIM
-           + td * (2 * b * DEC_DIM * ATT_DIM + 2 * b * PIX * ATT_DIM
-                   + 2 * b * PIX * ENC_DIM + 2 * b * DEC_DIM * ENC_DIM
-                   + 2 * b * (embed + ENC_DIM + DEC_DIM) * 4 * DEC_DIM)
-           + 2 * b * td * DEC_DIM * VOCAB)
-    return 3.0 * fwd / 1e9
+    tools/bench_train.py:40-70 counts them (bench_train's count)."""
+    from icd_tpu_torch.bench_train import decoder_train_gflops
+
+    return decoder_train_gflops(True, e=embed, b=b, t=t)
 
 
 def phase_train_step_f32(models, gen, results):
@@ -1948,13 +2134,10 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM, dense int8 (NVIDIA data sheet)
 
 def baseline_train_gflop(b, t):
     """Model GFLOP of one baseline-decoder forward + backward, counted as
-    tools/bench_train.py:40-50 counts them: 3x the forward's products
-    (the encoder head, the LSTM's gates over t steps, the vocab
-    product)."""
-    fwd = (2 * b * ENC_DIM * EMBED
-           + 2 * b * t * (EMBED + DEC_DIM) * 4 * DEC_DIM
-           + 2 * b * t * DEC_DIM * VOCAB)
-    return 3.0 * fwd / 1e9
+    tools/bench_train.py:40-50 counts them (bench_train's count)."""
+    from icd_tpu_torch.bench_train import decoder_train_gflops
+
+    return decoder_train_gflops(False, b=b, t=t)
 
 
 def train_baseline_models(models):
@@ -4605,6 +4788,7 @@ def main():
     phase_baseline_f32(base, results)
     phase_baseline_serve_bf16(base, act_maxes, results)
     phase_bench(base, results)
+    phase_benches(models, base, results)
     gen = torch.Generator().manual_seed(7)
     phase_train_step_f32(models, gen, results)
     phase_eval_f32(phase_train_f32(models, gen, results), gen, results)

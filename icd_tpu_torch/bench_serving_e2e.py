@@ -100,7 +100,8 @@ def run(encoder, decoder, blobs, device, n_batches=N_BATCHES, threads=None,
         repeats=REPEATS, trials=TRIALS, sweep_images=SWEEP_IMAGES):
     """The bench on ``blobs`` (JPEG bytes) with the given f32 models,
     whose <end> (V - 2) the caller has pinned: (sweep lines, summary)."""
-    from .bench import PEAKS, RESNET101_GFLOP, _sync, card_line
+    from .bench import PEAKS, RESNET101_GFLOP
+    from .utils.benchmarking import card_line, sync
     from .data.pipeline import device_prefetch
     from .decoding.serve import RepeatCaptioner, make_int8_captioner
 
@@ -142,7 +143,7 @@ def run(encoder, decoder, blobs, device, n_batches=N_BATCHES, threads=None,
         with torch.inference_mode():
             first = captioner(resident)  # warm-up, and the reference
             captioner(resident)
-        _sync(device)
+        sync(device)
 
         def batches():
             for i in range(n_batches):
@@ -160,7 +161,7 @@ def run(encoder, decoder, blobs, device, n_batches=N_BATCHES, threads=None,
     int(repeat(resident, 50))
     times = []
     for trial in range(trials):
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         int(repeat(resident, 52 + trial))
         times.append(time.perf_counter() - t0)

@@ -242,6 +242,37 @@ beam_search_fused.launches = 0
 beam_search_fused.grid_blocks = 0
 
 
+def bound_ms(ops, k, steps):
+    """Least time for one K2 search of ``steps`` steps on an H100: enc and
+    att_enc read once a step (no chip memory holds them at batch 64), the
+    weights, h0 and c0 read once, of the embedding only the rows gathered
+    (one a beam a step, at most the whole table), the raw alphas written
+    once; the step's products at the peak of the grid's dtype. ``ops``
+    are ``_operands``'. Returns (ms, "bytes" or "operations")."""
+    from .. import k1_bench
+
+    enc, att_enc, emb = ops["enc"], ops["att_enc"], ops["emb"]
+    b, p, d = enc.shape
+    a, hd = ops["wd"].shape
+    v, e = emb.shape
+    rows = b * k
+    per_step = sum(t.numel() * t.element_size() for t in (enc, att_enc))
+    once = sum(t.numel() * t.element_size() for name, t in ops.items()
+               if name not in ("enc", "att_enc", "emb"))
+    gathered = min(v, rows * steps) * e * emb.element_size()
+    nbytes = steps * (per_step + rows * p * 4) + once + gathered
+    flops = steps * (2 * rows * hd * (a + d)  # att_dec and gate
+                     + 4 * rows * p * a  # scores
+                     + 2 * rows * p * d  # context
+                     + 2 * rows * (e + d + hd) * 4 * hd  # LSTM gates
+                     + 2 * rows * hd * v)  # fc
+    peak = (k1_bench.BF16_FLOP_PER_S if enc.element_size() == 2
+            else k1_bench.F32_FLOP_PER_S)
+    by_bytes, by_ops = nbytes / k1_bench.HBM_BYTES_PER_S, flops / peak
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
 def _check(ops, k, start_id, end_id, max_steps):
     enc = ops["enc"]
     for name, t in ops.items():

@@ -1,8 +1,11 @@
 """``python -m icd_tpu_torch.bench``'s measuring function on the CPU, at a
 small size: a (1, 1, 1, 1) ResNet of widths (4, 8, 8, 16), E = H = 16,
 V = 53, batch 2 of 64x64 images, 2 repeats, 1 trial, max_len 6, in
-both modes. The numbers it prints are CPU numbers and are not checked,
-only the lines' form and what the bench promises of its workload."""
+both modes; and at that size the six workload benches (``python -m
+icd_tpu_torch.bench_*``), with bench_train's GFLOP count and
+bench_fused_beam's tokens held against the JAX package. The numbers
+they print are CPU numbers and are not checked, only the lines' form
+and what each bench promises of its workload."""
 
 import io
 import json
@@ -11,11 +14,15 @@ from contextlib import redirect_stdout
 import pytest
 import torch
 
-from icd_tpu_torch import bench
+from icd_tpu_torch import (bench, bench_attention, bench_beam, bench_bert,
+                           bench_fused_beam, bench_int8, bench_train)
+from icd_tpu_torch.models.attention import (AttentionDecoderParams,
+                                            init_attention_decoder)
 from icd_tpu_torch.models.baseline import (BaselineDecoderParams,
                                            init_baseline_decoder)
-from icd_tpu_torch.models.encoder import Encoder
+from icd_tpu_torch.models.encoder import Encoder, EncoderAttention
 from icd_tpu_torch.models.resnet import init_resnet
+from icd_tpu_torch.utils.benchmarking import result
 
 V = 53
 KEYS = {"metric", "value", "unit", "vs_baseline", "mfu", "mfu_peak", "card"}
@@ -64,3 +71,205 @@ def test_bench_rejects_an_unknown_mode():
                       "fp8", device="cpu")
     assert bench.PEAKS["int8"][0] == 1979e12
     assert bench.PEAKS["bf16"][0] == 989e12
+
+
+# The six workload benches (python -m icd_tpu_torch.bench_*), each
+# driven through its ``measure`` at the size above, against the rows of
+# the JAX tool it ports: labels and order as tools/bench_*.py print
+# them, a pinned <end> running the whole step budget, and the last
+# line's form.
+
+TOOL_LABELS = {
+    # tools/bench_int8.py:69-88
+    "bench_int8": ["bf16", "int8", "int8+dec"],
+    # tools/bench_attention.py:96-97
+    "bench_attention": ["bf16", "int8", "int8+dec"],
+    # tools/bench_beam.py:68-71
+    "bench_beam": ["f32", "bf16", "int8-enc"],
+    # tools/bench_fused_beam.py:68-71
+    "bench_fused_beam": ["fused", "xla-int8grid", "xla"],
+    # tools/bench_train.py:124-126
+    "bench_train": ["f32", "amp-bf16", "amp+int8enc"],
+    # tools/bench_bert.py's rows that have a counterpart, --decompose's
+    # first (:222-229, :337-354), with the W8A8 forward beside the f32
+    # one (the int8 BERT of :299-314).
+    "bench_bert": ["tokenize+align+pack", "device BERT fwd",
+                   "device BERT fwd int8", "device step resident",
+                   "inline loop", "overlapped+devBERT",
+                   "overlapped+devBERT int8", "overlapped+devBERT --amp",
+                   "overlapped+devBERT imgcache steady epoch"],
+}
+ROW_KEYS = {"label", "ms", "rate", "unit", "per", "k1_launches",
+            "k2_launches"}
+
+
+def _small_attention(embed=16, vocab=None):
+    gen = torch.Generator().manual_seed(0)
+    resnet = init_resnet(gen, (1, 1, 1, 1), (4, 8, 8, 16), device="cpu")
+    params = AttentionDecoderParams()
+    params.attention_dim = params.decoder_dim = 16
+    params.embed_size = embed
+    params.vocab = range(V) if vocab is None else vocab
+    params.use_bert = vocab is not None
+    decoder = init_attention_decoder(gen, params, encoder_dim=64,
+                                     device="cpu")
+    return EncoderAttention(resnet), decoder
+
+
+def _last_line(tool, rows):
+    """The bench's last line as it prints it, read back."""
+    out = io.StringIO()
+    with redirect_stdout(out):
+        print(json.dumps(result(tool, rows, "cpu")))
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert set(last) == {"tool", "rows", "card"} and last["card"] == "cpu"
+    assert [r["label"] for r in last["rows"]] == TOOL_LABELS[tool]
+    for r in last["rows"]:
+        assert ROW_KEYS <= set(r) and r["ms"] > 0
+        assert r["rate"] == pytest.approx(2 * 1e3 / r["ms"])  # batch 2
+        assert (r["k1_launches"], r["k2_launches"]) == (0, 0)  # CPU
+    return last["rows"]
+
+
+def test_bench_int8_rows_on_the_cpu():
+    encoder, decoder = _small_models()
+    rows = _last_line("bench_int8", bench_int8.measure(
+        encoder, decoder, bench.images(2, 64, "cpu", seed=2), repeats=2,
+        trials=1, decode_len=6, device="cpu"))
+    assert [r["steps"] for r in rows] == [6, 6, 6]  # <end> pinned
+    assert all(r["unit"] == "captions/s" and r["units"] == 6 for r in rows)
+
+
+def test_bench_attention_rows_on_the_cpu():
+    encoder, decoder = _small_attention()
+    bench.pin_end(decoder, V - 2)
+    assert decoder.fc.bias[V - 2] == -1e9
+    rows = _last_line("bench_attention", bench_attention.measure(
+        encoder, decoder, bench.images(2, 64, "cpu", seed=2), repeats=2,
+        trials=1, decode_len=6, device="cpu"))
+    assert [r["steps"] for r in rows] == [6, 6, 6]
+
+
+def test_bench_beam_rows_on_the_cpu():
+    encoder, decoder = _small_attention()
+    bench.pin_end(decoder, V - 2)
+    imgs = bench.images(2, 64, "cpu", seed=2)
+    rows = _last_line("bench_beam", bench_beam.measure(
+        encoder, decoder, imgs, repeats=2, trials=1, max_steps=5,
+        device="cpu"))
+    assert [r["steps"] for r in rows] == [[5]] * 3
+    rows = bench_beam.measure(encoder, decoder, imgs, repeats=1, trials=1,
+                              skip_f32=True, max_steps=5, device="cpu")
+    assert [r["label"] for r in rows] == ["bf16", "int8-enc"]
+
+
+def test_bench_fused_beam_rows_on_the_cpu():
+    _, decoder = _small_attention()
+    bench.pin_end(decoder, V - 2)
+    grid = torch.randn(2, 16, 64, generator=torch.Generator().manual_seed(2))
+    rows = _last_line("bench_fused_beam", bench_fused_beam.measure(
+        decoder.to(torch.bfloat16), grid.to(torch.bfloat16), repeats=2,
+        trials=1, max_steps=5, device="cpu"))
+    assert [r["steps"] for r in rows] == [[5]] * 3
+    assert rows[0]["bound_ms"] > 0 and rows[0]["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("attention", [False, True])
+def test_bench_train_rows_on_the_cpu(attention):
+    encoder, decoder = (_small_attention() if attention
+                        else _small_models())
+    rows = _last_line("bench_train", bench_train.measure(
+        encoder, decoder, bench.images(2, 64, "cpu", seed=2),
+        bench_train.captions(2, 6, V, "cpu"), attention, repeats=2,
+        trials=1, device="cpu"))
+    assert all(r["mfu"] is None and r["unit"] == "images/s"
+               and r["per"] == "step" for r in rows)
+
+
+def test_bench_bert_rows_on_the_cpu():
+    from icd_tpu_torch.models.bert import BERT_BASE
+
+    vocab, bert, tokenizer = bench_bert.vocab_and_bert(dict(
+        BERT_BASE, hidden_size=16, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=32))
+    assert len(vocab) == 2004 and bert.word.weight.shape == (21, 16)
+    assert tokenizer.tokenize("w123") == ["w", "##1", "##2", "##3"]
+    encoder, decoder = _small_attention(16, vocab)
+    batches = bench_bert.host_batches(len(vocab), 2, batch=2, cap_len=6,
+                                      size=64)
+    rows = _last_line("bench_bert", bench_bert.measure(
+        encoder, decoder, bert, tokenizer, vocab, batches, device="cpu"))
+    assert all(r["units"] == 2 for r in rows)
+
+
+@pytest.mark.parametrize("attention", [False, True])
+@pytest.mark.parametrize("shape", [{}, dict(e=16, h=16, a=16, v=53, b=2,
+                                             t=6)])
+def test_bench_train_gflops_equal_the_tools(attention, shape):
+    """The model GFLOP count of tools/bench_train.py:36-72, exactly (its
+    module imports only numpy at the top)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "bench_train.py")
+    spec = importlib.util.spec_from_file_location("tool_bench_train", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert (bench_train.decoder_train_gflops(attention, **shape)
+            == tool.decoder_train_gflops(attention, **shape))
+    assert (bench_train.BATCH, bench_train.CAP_LEN, bench_train.VOCAB,
+            bench_train.REPEATS, bench_train.TRIALS) == (
+        tool.BATCH, tool.CAP_LEN, tool.VOCAB, tool.REPEATS, tool.TRIALS)
+
+
+def test_bench_fused_beam_gives_jax_tokens():
+    """bench_fused_beam's workload at tests/test_fused_beam.py:39-59's size
+    (b = 4, k = 5, P = 16, V = 40, A = 24, H = 32, E = 16, D = 64, 7
+    steps) in f32, <end>'s fc bias at -1e9 as the tool sets it: the
+    fused row (K2's plain version on the CPU) and the xla row give JAX
+    beam_search_fused's tokens (interpret mode) and beam_search_batched's,
+    alphas within 5e-6 (tests/test_torch_fused_beam.py's tolerance). The
+    seeded decoder goes to JAX through params.py."""
+    import numpy as np
+
+    from icd_tpu.decoding.beam import beam_search_batched as jax_beam
+    from icd_tpu.ops.fused_beam import beam_search_fused as jax_fused
+    from icd_tpu_torch.params import decoder_to_jax
+
+    v, b, k, p, steps = 40, 4, 5, 16, 7
+    params = AttentionDecoderParams()
+    params.attention_dim, params.decoder_dim, params.embed_size = 24, 32, 16
+    params.vocab = range(v)
+    tdec = init_attention_decoder(torch.Generator().manual_seed(0), params,
+                                  encoder_dim=64, device="cpu")
+    dec = decoder_to_jax(tdec)
+    dec["fc"]["b"][v - 2] = -1e9  # tools/bench_fused_beam.py:41
+    bench.pin_end(tdec, v - 2)
+    assert np.array_equal(tdec.fc.bias.detach().numpy(), dec["fc"]["b"])
+    grids = (np.random.default_rng(10).standard_normal((b, p, 64))
+             * 0.5).astype(np.float32)
+    refs = [jax_fused(dec, grids, k, v - 3, v - 2, max_steps=steps,
+                      chunk_images=2, interpret=True),
+            jax_beam(dec, grids, k, v - 3, v - 2, max_steps=steps)]
+    for mode in ("fused", "xla"):
+        out = bench_fused_beam.search(mode, tdec, torch.from_numpy(grids), k,
+                                      v - 3, v - 2, steps)
+        assert out["steps"] == steps and not out["found"].any()
+        for ref in refs:
+            for key in ("seq", "seq_len", "found"):
+                np.testing.assert_array_equal(out[key].numpy(),
+                                              np.asarray(ref[key]))
+            np.testing.assert_allclose(out["alphas"].numpy(),
+                                       np.asarray(ref["alphas"]), rtol=0,
+                                       atol=5e-6)
+
+
+@pytest.mark.parametrize("module", [bench_int8, bench_attention, bench_beam,
+                                    bench_fused_beam, bench_train,
+                                    bench_bert])
+def test_benches_raise_without_a_card(module):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.main([])

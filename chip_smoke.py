@@ -12,7 +12,9 @@ detection eval and the notebook's teacher-forced caption demo, and the
 port's JPEG codec with the paths that read image files (captioning,
 the val-split beam eval, training, the file-fed serving bench).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card, every phase below
+    python3 chip_smoke.py --nccl4    # four cards: mesh_nccl1, then
+                                     # mesh_gloo_shared's ranks over NCCL
 
 Phases, one line of output each:
 
@@ -150,9 +152,18 @@ Phases, one line of output each:
                gate, and the raw history: step 1's alphas on every row,
                and every step's parents and alphas within 5e-6 for at
                least 7/8 of the images, the rest split by f32 rounding
-               at near ties); no launch on bench_int8, bench_train (both
-               families) or bench_bert; then K2 alone at the 51-step
-               budget beside its bound;
+               at near ties); then k2_split, one line a split image:
+               K2 stopped after each step up to it and read through its
+               workspace views (parents and alphas equal to the full
+               launch's), its first step whose choice differs from the
+               plain version's, each pair of candidates ranked
+               otherwise with K2's, the f32 plain version's and a
+               float64 arbiter's scores on the same beams, the f64 gap
+               and both versions' errors; every split must be explained
+               (K2's choice the top-k of its own scores, each gap within
+               the errors together); no launch on bench_int8,
+               bench_train (both families) or bench_bert; then K2 alone
+               at the 51-step budget beside its bound;
 18. train_step_f32  one train step of full_width_models' attention model,
                f32, TF32 off, dropout 0, batch 4, caption length 12,
                seeded Zipf captions over V=10,000 (testing.seeded_captions),
@@ -317,8 +328,11 @@ Phases, one line of output each:
 36. jpeg_corpus  python -m icd_tpu_torch.make_synthetic_coco into
                build/slice13 (200 train and 130 val images at 640x480,
                realistic captions, 5 an image) and python -m
-               icd_tpu_torch.init --vocab True --vocab_threshold 1; the
-               attention model over that vocabulary saved as
+               icd_tpu_torch.init --vocab True --vocab_threshold 1;
+               ops.image.resize_bilinear (JAX's antialiased bilinear)
+               of 8 decoded val images, 640x480 -> 224x224, on the card
+               within 2e-3 of the CPU (0-255 scale), its max error
+               printed; the attention model over that vocabulary saved as
                checkpoints/s13_0.ckpt (full_width_models' ResNet-101 with
                BN re-estimated on 16 corpus images, a seeded steered
                decoder);
@@ -1685,9 +1699,12 @@ def k2_raw_against_plain(decoder, grid, max_steps, what):
     least 7/8 of the images every step's parents equal and alphas within
     5e-6. The rest may split: the two sum in other orders (about 1e-6
     apart), and over 64 images x 51 steps x the top-k's ranks a few
-    candidates lie that near each other, so rounding orders them. Returns
-    (images whose history is equal, each split image's first step with
-    other parents, the alpha error on equal images)."""
+    candidates lie that near each other, so rounding orders them
+    (k2_trace_splits holds each split to that). Returns (images whose
+    history is equal, each split image's first step with other parents,
+    the alpha error on equal images, the split images, and the steps
+    within which each has split: its first step with other parents, or
+    all the steps run)."""
     import torch
 
     from icd_tpu_torch.ops import fused_beam
@@ -1712,7 +1729,46 @@ def k2_raw_against_plain(decoder, grid, max_steps, what):
     splits = ((~parents).int().argmax(dim=0) + 1)[~same].tolist()
     check(int(same.sum()) >= n - n // 8, what + " K2 vs plain: images "
           "with equal histories", int(same.sum()), n, splits)
-    return int(same.sum()), splits, alpha_err[:, same].max().item()
+    split_images = torch.nonzero(~same).flatten().tolist()
+    within = max((splits[j] if (~parents[:, i]).any() else steps
+                  for j, i in enumerate(split_images)), default=0)
+    return (int(same.sum()), splits, alpha_err[:, same].max().item(),
+            split_images, within)
+
+
+def k2_trace_splits(decoder, grid, images, steps, what):
+    """Trace each image whose K2 history split from the plain version's
+    (testing.trace_k2_splits, f32, TF32 off): K2 stopped after each of
+    the first ``steps`` steps and read through its workspace views
+    (whose parents and alphas must equal the full launch's), the f32
+    plain version, and the float64 arbiter on the same beams. One line a
+    split: its first step whose choice differs, each pair of candidates
+    ranked otherwise (K2's, the plain version's) with their three scores,
+    the f64 gap and both versions' errors. Every split must be explained:
+    K2's choice the top-k of its own scores at every step up to it, and
+    each pair's f64 gap within the two versions' errors together.
+    Returns (the number of splits traced, each of them explained, and
+    the seconds the trace took)."""
+    import torch
+
+    from icd_tpu_torch.ops import fused_beam
+    from icd_tpu_torch.testing import f32_products, trace_k2_splits
+
+    f32_products()
+    with torch.no_grad():
+        ops = fused_beam._operands(decoder, grid)
+    t0 = time.perf_counter()
+    recs, prefix_equal = trace_k2_splits(ops, BEAMS, START_ID, END_ID,
+                                         images, steps)
+    seconds = time.perf_counter() - t0
+    for rec in recs:
+        log("k2_split", what=what, **rec)
+    check(prefix_equal, what + " K2 stopped after each step: parents and "
+          "alphas equal to the full launch's")
+    check(all(r["explained"] for r in recs), what + " K2's splits from "
+          "its plain version explained by f32 rounding",
+          [(r["image"], r["step"]) for r in recs if not r["explained"]])
+    return len(recs), seconds
 
 
 def phase_benches(models, base, results):
@@ -1792,8 +1848,10 @@ def phase_benches(models, base, results):
     dec32, grid32 = copy.deepcopy(dec).float(), first_grid.float()
     k2_against_plain(dec32, grid32, BEAMS, START_ID, END_ID, 51,
                      "bench_fused_beam f32")
-    k2_same, k2_splits, k2_err = k2_raw_against_plain(
+    k2_same, k2_splits, k2_err, split_images, within = k2_raw_against_plain(
         dec32, grid32, 51, "bench_fused_beam f32")
+    k2_explained, trace_s = k2_trace_splits(
+        dec32, grid32, split_images, within, "bench_fused_beam f32")
     del dec32, grid32
     with torch.no_grad():
         ops = fused_beam._operands(dec, first_grid)
@@ -1827,6 +1885,8 @@ def phase_benches(models, base, results):
         k2_first_search_f32_images_equal_history=k2_same,
         k2_first_search_f32_split_steps=k2_splits,
         k2_first_search_f32_alpha_err_vs_plain=k2_err,
+        k2_first_search_f32_splits_explained=k2_explained,
+        k2_trace_s=trace_s,
         k2_ms_51_steps=k2_ms, k2_bound_ms_51_steps=k2_bound,
         k2_bound_by=k2_bound_by, k2_share_of_bound=k2_bound / k2_ms)
 
@@ -3328,11 +3388,12 @@ def library_collectives(n_model):
 
 def mesh_gloo_rank(rank, world, mesh_dir):
     """One of mesh_gloo_shared's ranks: a (2, 2) mesh over gloo, the four
-    ranks on the one card. Runs both families' steps clean, with TF32 on
-    and with the n_model-times gradient fault;
-    rank 0 measures each against mesh_nccl1's one-rank run. Then the
-    sharded captioners at batch 64, rank 0 holding K1's first call
-    against its plain version and the tokens against one rank's."""
+    ranks on the one card (or over NCCL, one card a rank: --nccl4). Runs
+    both families' steps clean, with TF32 on and with the n_model-times
+    gradient fault; rank 0 measures each against mesh_nccl1's one-rank
+    run. Then the sharded captioners at batch 64, rank 0 holding K1's
+    first call against its plain version and the tokens against one
+    rank's."""
     import torch
 
     from icd_tpu_torch.decoding.serve import make_sharded_attention_captioner
@@ -3417,24 +3478,28 @@ MESH_LIMITS = {
                      nu=1e-4)}
 
 
-def phase_mesh_gloo_shared(results):
+def phase_mesh_gloo_shared(results, backend="gloo"):
     """Four gloo ranks spawned on the one card, a (2, 2) mesh: three f32
     steps of each family against mesh_nccl1's one-rank run (the limits
     above, each of which TF32 or the n_model-times gradient fault must
     exceed), and the sharded captioners at batch 64 bf16. A correctness
-    run, not a scaling figure: the four ranks share one card."""
+    run, not a scaling figure: the four ranks share one card. With
+    ``backend`` "nccl" (``python3 chip_smoke.py --nccl4``) the same ranks
+    run over NCCL, rank r on card r, and the line is mesh_nccl4's."""
     from icd_tpu_torch.parallel import run_ranks
 
-    phase = "mesh_gloo_shared"
+    phase = "mesh_gloo_shared" if backend == "gloo" else "mesh_nccl4"
     t0 = time.perf_counter()
-    outs = run_ranks(mesh_gloo_rank, 4, args=(MESH_DIR,), backend="gloo",
+    outs = run_ranks(mesh_gloo_rank, 4, args=(MESH_DIR,), backend=backend,
                      device="cuda:0", limit_s=600)
     wall_s = time.perf_counter() - t0
     first = outs[0]
     errors = first["errors"]
-    log(phase, backend="gloo", ranks=4, mesh=[2, 2],
-        note="four ranks sharing one card: a correctness run, not a "
-        "scaling figure", wall_s=wall_s, errors=errors,
+    log(phase, backend=backend, ranks=4, mesh=[2, 2],
+        note=("four ranks sharing one card: a correctness run, not a "
+              "scaling figure" if backend == "gloo" else
+              "four cards, one a rank: a correctness run"),
+        wall_s=wall_s, errors=errors,
         train_s=first["train_s"], serve_s=first["serve_s"],
         k1_launches=dict(greedy=[o["k1_greedy"] for o in outs],
                          beam=[o["k1_beam"] for o in outs]),
@@ -4469,10 +4534,18 @@ def phase_jpeg_corpus(root):
     """``python -m icd_tpu_torch.make_synthetic_coco`` into build/slice13
     at 640x480 with realistic captions, 5 an image (S13_TRAIN train and
     S13_VAL val images), then ``python -m icd_tpu_torch.init --vocab
-    True --vocab_threshold 1``: no PIL on this machine. Returns the
-    vocabulary."""
+    True --vocab_threshold 1``: no PIL on this machine. Then
+    ``ops.image.resize_bilinear`` (JAX's antialiased bilinear resize) of
+    8 of the val images, decoded, from 640x480 to 224x224 on the card
+    against the CPU: within 2e-3 on the 0-255 scale, the limit the CPU
+    tests hold it to against JAX (f32 sums over the antialias taps in
+    another order). Returns the vocabulary."""
+    import numpy as np
+    import torch
+
     from icd_tpu_torch import init, make_synthetic_coco
     from icd_tpu_torch.native import jpeg
+    from icd_tpu_torch.ops.image import resize_bilinear
     from icd_tpu_torch.vocabulary import load_vocab
 
     t0 = time.perf_counter()
@@ -4496,10 +4569,23 @@ def phase_jpeg_corpus(root):
             check(jpeg.size(f.read()) == (640, 480), split + " image size")
     check(counts == {"train": S13_TRAIN, "val": S13_VAL}, "corpus files",
           counts)
+    val_dir = os.path.join(root, "cocoapi", "images", "val2014")
+    frames = []
+    for name in sorted(os.listdir(val_dir))[:8]:
+        with open(os.path.join(val_dir, name), "rb") as f:
+            frames.append(jpeg.decode(f.read()))
+    frames = torch.from_numpy(np.stack(frames))
+    resized = resize_bilinear(frames.cuda(), (224, 224))
+    torch.cuda.synchronize()
+    resize_err = (resized.cpu() - resize_bilinear(frames, (224, 224))).abs(
+        ).max().item()
+    check(tuple(resized.shape) == (8, 224, 224, 3) and resize_err <= 2e-3,
+          "resize_bilinear card vs CPU", tuple(resized.shape), resize_err)
     log("jpeg_corpus", train_images=S13_TRAIN, val_images=S13_VAL,
         captions_per_image=5, img_size="640x480", bytes=nbytes,
         seconds=corpus_s, images_per_s=(S13_TRAIN + S13_VAL) / corpus_s,
-        vocab=len(vocab), vocab_seconds=vocab_s)
+        vocab=len(vocab), vocab_seconds=vocab_s,
+        resize_bilinear_640x480_to_224_max_err_card_vs_cpu=resize_err)
     return vocab
 
 
@@ -4757,6 +4843,21 @@ def slice13(models, results):
     phase_serving_e2e(models, results)
 
 
+def nccl4():
+    """``--nccl4``, on four cards: mesh_nccl1's one-rank reference, then
+    mesh_gloo_shared's (2, 2) mesh over NCCL, one card a rank."""
+    import torch
+
+    check(torch.cuda.device_count() >= 4, "--nccl4 needs four cards",
+          torch.cuda.device_count())
+    results = {name: {"launches_by_path": {}}
+               for name in ("fused_attention", "fused_beam")}
+    phase_build()
+    models = full_width_models()
+    phase_mesh_nccl1(models, torch.Generator().manual_seed(7), results)
+    phase_mesh_gloo_shared(results, backend="nccl")
+
+
 def main():
     import torch
 
@@ -4768,6 +4869,13 @@ def main():
     from icd_tpu_torch.bench import card_line
 
     print(card_line(), flush=True)
+    if sys.argv[1:] == ["--nccl4"]:
+        nccl4()
+        print(card_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     results = {}
     phase_build()
     phase_k1(results)

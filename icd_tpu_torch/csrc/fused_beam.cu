@@ -69,6 +69,13 @@
 // every 32 ns on the H100) at the start of the launch and after each grid
 // barrier, into phase_ns (S, kPhases + 1): row 0 holds the start and the
 // end of init, row s the start of step s and then the end of each phase.
+//
+// For diagnosis the workspace keeps what the last step run leaves there:
+// its logits, each live row's log-sum-exp (phase E's one extra store), the
+// running scores and words it chose, and the live beams
+// (icd_fused_beam_views gives their offsets). A launch stopped after step
+// s therefore shows step s's candidates, (logits - lse) + the running
+// scores of a launch stopped after step s - 1, and its choice among them.
 
 #include <cooperative_groups.h>
 #include <limits.h>
@@ -149,18 +156,20 @@ struct Params {
   int* words;      // (R) last word of each row
   int* seqs;       // (R, S)
   int* kact;       // (B) live beams of each image
+  float* lse;      // (R) each live row's log-sum-exp at the last step run
   int images, k, pix, ddim, adim, hdim, edim, vocab, max_steps;
   int start_id, end_id;
   int stage_logits;  // E copies its image's logits to shared memory
 };
 
-// Lays the scratch buffers out in `base` (nullptr: only count), each
-// aligned to 256 bytes; returns the bytes used.
-size_t carve(Params& p, char* base, size_t elt, int parts) {
+// Lays the scratch buffers out from address `base`, each aligned to 256
+// bytes; returns the bytes used. With base 0 the pointers set are the
+// buffers' byte offsets.
+size_t carve(Params& p, uintptr_t base, size_t elt, int parts) {
   size_t off = 0;
   auto take = [&](size_t bytes) -> char* {
     off = (off + 255) & ~size_t(255);
-    char* at = base ? base + off : nullptr;
+    char* at = reinterpret_cast<char*>(base + off);
     off += bytes;
     return at;
   };
@@ -181,6 +190,7 @@ size_t carve(Params& p, char* base, size_t elt, int parts) {
   p.words = (int*)take(r * sizeof(int));
   p.seqs = (int*)take(r * s * sizeof(int));
   p.kact = (int*)take(p.images * sizeof(int));
+  p.lse = (float*)take(r * f);
   return off;
 }
 
@@ -346,7 +356,9 @@ __device__ void select_image(int img, int step, const Params& p,
   if (threadIdx.x < live) {
     float sj = sh.red[0][threadIdx.x];
     for (int w = 1; w < kWarps; ++w) sj += sh.red[w][threadIdx.x];
-    sh.lse[threadIdx.x] += logf(sj);
+    const float lse = sh.lse[threadIdx.x] + logf(sj);
+    sh.lse[threadIdx.x] = lse;
+    p.lse[row0 + threadIdx.x] = lse;  // kept for diagnosis only
   }
   __syncthreads();
 
@@ -746,7 +758,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 template <typename T>
 cudaError_t launch(Params& p, void* workspace, cudaStream_t stream,
                    int* grid_blocks) {
-  carve(p, static_cast<char*>(workspace), sizeof(T), c_parts<T>());
+  carve(p, reinterpret_cast<uintptr_t>(workspace), sizeof(T), c_parts<T>());
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -804,8 +816,29 @@ extern "C" size_t icd_fused_beam_workspace(int images, int k, int pix,
                                            int edim, int vocab,
                                            int max_steps, int dtype) {
   Params p = sizes(images, k, pix, ddim, adim, hdim, edim, vocab, max_steps);
-  return dtype == 1 ? carve(p, nullptr, 2, c_parts<__nv_bfloat16>())
-                    : carve(p, nullptr, 4, c_parts<float>());
+  return dtype == 1 ? carve(p, 0, 2, c_parts<__nv_bfloat16>())
+                    : carve(p, 0, 4, c_parts<float>());
+}
+
+// Byte offsets in that workspace of what the last step run leaves there,
+// for diagnosis: offsets[0] cum (R f32, the running scores after it),
+// [1] lse (R f32, each live row's log-sum-exp), [2] logits (R x V in the
+// grid's type), [3] words (R int, the last words) and [4] kact (B int,
+// each image's live beams after it); rows in packing order.
+extern "C" void icd_fused_beam_views(int images, int k, int pix, int ddim,
+                                     int adim, int hdim, int edim, int vocab,
+                                     int max_steps, int dtype,
+                                     size_t* offsets) {
+  Params p = sizes(images, k, pix, ddim, adim, hdim, edim, vocab, max_steps);
+  if (dtype == 1)
+    carve(p, 0, 2, c_parts<__nv_bfloat16>());
+  else
+    carve(p, 0, 4, c_parts<float>());
+  offsets[0] = reinterpret_cast<uintptr_t>(p.cum);
+  offsets[1] = reinterpret_cast<uintptr_t>(p.lse);
+  offsets[2] = reinterpret_cast<uintptr_t>(p.logits);
+  offsets[3] = reinterpret_cast<uintptr_t>(p.words);
+  offsets[4] = reinterpret_cast<uintptr_t>(p.kact);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (every input but b_sum, which is f32).

@@ -5,9 +5,9 @@ cocoapi/PythonAPI/pycocotools/coco.py:70-424): ``createIndex``,
 ``info``, ``getAnnIds``, ``getCatIds``, ``getImgIds``, ``loadAnns``,
 ``loadCats``, ``loadImgs``, ``showAnns`` (matplotlib, imported by the
 call), ``loadRes`` (caption, bbox, segm and numpy results),
-``loadNumpyAnnotations``, ``annToRLE`` and ``annToMask``, backed by
-``json`` for parsing and the port's C++ RLE library (``native/mask.py``)
-for masks. ``download`` needs the network and is left out.
+``loadNumpyAnnotations``, ``annToRLE``, ``annToMask`` and ``download``
+(``urlretrieve`` of each image's ``coco_url``), backed by ``json`` for
+parsing and the port's C++ RLE library (``native/mask.py``) for masks.
 """
 
 import copy
@@ -205,6 +205,28 @@ class COCO:
         p = PatchCollection(polygons, facecolor="none",
                             edgecolors=colors, linewidths=2)
         ax.add_collection(p)
+
+    def download(self, tarDir=None, imgIds=[]):
+        """Download images by coco_url into ``tarDir`` (reference:
+        coco.py:358-381): every image, or those of ``imgIds``; a file
+        already there is not fetched again. Returns -1 without
+        ``tarDir``."""
+        import os
+        from urllib.request import urlretrieve
+
+        if tarDir is None:
+            print("Please specify target directory")
+            return -1
+        imgs = (list(self.imgs.values()) if len(imgIds) == 0
+                else self.loadImgs(imgIds))
+        os.makedirs(tarDir, exist_ok=True)
+        for i, img in enumerate(imgs):
+            tic = time.time()
+            fname = os.path.join(tarDir, img["file_name"])
+            if not os.path.exists(fname):
+                urlretrieve(img["coco_url"], fname)
+            print("downloaded {}/{} images (t={:0.1f}s)".format(
+                i, len(imgs), time.time() - tic))
 
     def loadRes(self, resFile):
         """Load algorithm results into a new COCO index (reference:

@@ -73,7 +73,8 @@ def _operands(decoder, encoder_grids):
 
 
 @torch.no_grad()
-def _search_plain(ops, k, start_id, end_id, max_steps):
+def _search_plain(ops, k, start_id, end_id, max_steps, acc=torch.float32,
+                  top_k=_top_k):
     """K2's loop in plain PyTorch (fused_beam.py:141-398), at K2's numerics.
 
     Returns what the kernel writes: raw alphas (S, B, k, P), parents
@@ -81,6 +82,12 @@ def _search_plain(ops, k, start_id, end_id, max_steps):
     (B,), and the steps run. As in K2, an image whose beams are all
     retired is not frozen: its rows are masked out of every later
     candidate set, and nothing after its last live step is read.
+
+    For diagnosis only (``testing.trace_k2_splits``): ``acc`` is the type
+    of the sums and state, f32 as in K2, or float64 as an arbiter of K2's
+    f32 rounding (operands are still rounded to the grid's type where K2
+    rounds them: h before each product, the gated context, the logits);
+    ``top_k(candidates (B, k * V), k)`` makes each step's choice.
     """
     enc, att_enc = ops["enc"], ops["att_enc"]
     cd = enc.dtype
@@ -89,50 +96,50 @@ def _search_plain(ops, k, start_id, end_id, max_steps):
     dev = enc.device
     n_rows = max_steps + 1
     long = dict(dtype=torch.long, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    wf32 = {name: ops[name].float() for name in (
+    fa = dict(dtype=acc, device=dev)
+    wa = {name: ops[name].to(acc) for name in (
         "wd", "bd", "wf", "bf", "wg", "bg", "wh", "wfc", "bfc")}
-    wi_emb = ops["wi"][:, :e].float()
-    wi_ctx = ops["wi"][:, e:].float()
-    enc32, att_enc32 = enc.float(), att_enc.float()
+    wi_emb = ops["wi"][:, :e].to(acc)
+    wi_ctx = ops["wi"][:, e:].to(acc)
+    enc_a, att_enc_a = enc.to(acc), att_enc.to(acc)
 
-    def prod(x, w):  # x rounded to the grid's dtype, f32 sums
-        return x.to(cd).float() @ w.t()
+    def prod(x, w):  # x rounded to the grid's dtype, sums in acc
+        return x.to(cd).to(acc) @ w.t()
 
-    h = ops["h0"].float().repeat_interleave(k, 0)  # (B*k, H)
-    c = ops["c0"].float().repeat_interleave(k, 0)
+    h = ops["h0"].to(acc).repeat_interleave(k, 0)  # (B*k, H)
+    c = ops["c0"].to(acc).repeat_interleave(k, 0)
     words = torch.full((b * k,), start_id, **long)
-    cum = torch.zeros((b, k), **f32)
+    cum = torch.zeros((b, k), **fa)
     seqs = torch.full((b, k, n_rows), end_id, **long)
     seqs[:, :, 0] = start_id
     k_active = torch.full((b,), k, **long)
     slot_ids = torch.arange(k, **long)
     image_ids = torch.arange(b, **long)
-    best_score = torch.full((b,), NEG_INF, **f32)
+    best_score = torch.full((b,), NEG_INF, **fa)
     best_seq = seqs[:, 0].clone()
     best_len = torch.full((b,), 2, **long)
     best_step = torch.ones((b,), **long)
     best_parent = torch.zeros((b,), **long)
     found = torch.zeros((b,), dtype=torch.bool, device=dev)
-    alpha_raw = torch.zeros((n_rows, b, k, p), **f32)
+    alpha_raw = torch.zeros((n_rows, b, k, p), **fa)
     parent_hist = torch.zeros((n_rows, b, k), **long)
 
     step = 1
     while step <= max_steps:
         if not bool((k_active > 0).any()):
             break
-        att_dec = prod(h, wf32["wd"]) + wf32["bd"]
-        gate = torch.sigmoid(prod(h, wf32["wg"]) + wf32["bg"])
-        act = torch.relu(att_enc32[:, None] + att_dec.view(b, k, 1, -1))
-        scores = (act * wf32["wf"]).sum(-1) + wf32["bf"]
+        att_dec = prod(h, wa["wd"]) + wa["bd"]
+        gate = torch.sigmoid(prod(h, wa["wg"]) + wa["bg"])
+        act = torch.relu(att_enc_a[:, None] + att_dec.view(b, k, 1, -1))
+        scores = (act * wa["wf"]).sum(-1) + wa["bf"]
         alpha = torch.softmax(scores, dim=-1)  # (B, k, P)
-        ctx = (alpha @ enc32).view(b * k, d)
+        ctx = (alpha @ enc_a).view(b * k, d)
         x2 = (gate * ctx).to(cd)
-        gates = (ops["emb"][words].float() @ wi_emb.t()
-                 + x2.float() @ wi_ctx.t()
-                 + prod(h, wf32["wh"]) + ops["b_sum"])
+        gates = (ops["emb"][words].to(acc) @ wi_emb.t()
+                 + x2.to(acc) @ wi_ctx.t()
+                 + prod(h, wa["wh"]) + ops["b_sum"].to(acc))
         h_new, c_new = gates_to_state(gates, c)
-        logits = (prod(h_new, wf32["wfc"]) + wf32["bfc"]).to(cd).float()
+        logits = (prod(h_new, wa["wfc"]) + wa["bfc"]).to(cd).to(acc)
         m = logits.max(dim=-1, keepdim=True).values
         lse = m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
         if step == 1:
@@ -143,7 +150,7 @@ def _search_plain(ops, k, start_id, end_id, max_steps):
                            (logits - lse).view(b, k, v) + cum[:, :, None],
                            NEG_INF)
 
-        top_scores, top_idx = _top_k(cand.view(b, k * v), k)
+        top_scores, top_idx = top_k(cand.view(b, k * v), k)
         prev, word = top_idx // v, top_idx % v
         sel_valid = slot_ids < k_active[:, None]
         sel_scores = torch.where(sel_valid, top_scores, NEG_INF)
@@ -234,6 +241,7 @@ def beam_search_fused(decoder, encoder_grids, beam_size, start_id, end_id,
         raw = _search_plain(ops, beam_size, start_id, end_id, max_steps)
     else:
         raw = _launch(ops, beam_size, start_id, end_id, max_steps)
+        del raw["scratch"]  # free the workspace before the outputs are made
     return _outputs(raw, start_id, end_id)
 
 
@@ -344,7 +352,8 @@ def _launch(ops, k, start_id, end_id, max_steps):
 
 def _start(ops, k, start_id, end_id, max_steps):
     """Launch K2 on the current stream without waiting for it: the raw
-    outputs, ``steps`` still a (1,) tensor on the card."""
+    outputs, ``steps`` still a (1,) tensor on the card, and ``scratch``:
+    views of the launch's workspace (``_scratch``), for diagnosis."""
     b, p, d, a, hd, e, v = _check(ops, k, start_id, end_id, max_steps)
     enc = ops["enc"]
     lib = kernels.load("fused_beam")
@@ -387,4 +396,29 @@ def _start(ops, k, start_id, end_id, max_steps):
     return dict(alpha=alpha, parent=parent, best_seq=best_seq,
                 best_len=meta[:, 0], best_step=meta[:, 1],
                 best_parent=meta[:, 2], found=meta[:, 3] > 0, steps=steps,
-                phase_ns=phase_ns)
+                phase_ns=phase_ns,
+                scratch=_scratch(lib, workspace, sizes, code, enc.dtype))
+
+
+def _scratch(lib, workspace, sizes, code, dtype):
+    """What K2's last step run leaves in its workspace, as views of it
+    (offsets from the library, ``icd_fused_beam_views``): ``cum`` (R,)
+    f32, the running scores after that step; ``lse`` (R,) f32, each live
+    row's log-sum-exp of it; ``logits`` (R, V) in the grid's dtype;
+    ``words`` (R,) int32, the words it chose; ``kact`` (B,) int32, each
+    image's live beams after it. Rows are in packing order; ``lse`` of a
+    row that was not live at that step holds no value of it."""
+    b, k, v = sizes[0], sizes[1], sizes[7]
+    fn = lib.icd_fused_beam_views
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = None
+    offsets = (ctypes.c_size_t * 5)()
+    fn(*sizes, code, offsets)
+
+    def view(i, n, t):
+        return workspace[offsets[i]:offsets[i] + n * t.itemsize].view(t)
+
+    r = b * k
+    return dict(cum=view(0, r, torch.float32), lse=view(1, r, torch.float32),
+                logits=view(2, r * v, dtype).view(r, v),
+                words=view(3, r, torch.int32), kact=view(4, b, torch.int32))

@@ -3,7 +3,8 @@ finish their captions, seeded captions, one train step of either model
 family recorded for comparison across devices, and two ways to make a
 second device take the first one's discrete choices (the attention's
 relu branches, the W8A8 BERT's int8 roundings) so that the comparison
-sees only their float work.
+sees only their float work, and a tracer of K2's f32 splits from its
+plain version against a float64 arbiter (``trace_k2_splits``).
 
 A random decoder never emits ``<end>`` among thousands of near-equal
 logits, so every beam search would run to its step limit. ``steer_end``
@@ -915,3 +916,180 @@ def pixel_digest(arrays):
         digest.update(repr(tuple(arr.shape)).encode())
         digest.update(np.ascontiguousarray(arr, np.uint8).tobytes())
     return digest.hexdigest()
+
+
+# K2's splits from its plain version, traced against a float64 arbiter.
+
+def rank_order(flat, scores, valid):
+    """(B, k) flat candidate indices in ``lax.top_k`` order (score
+    descending, index ascending), the slots ``>= valid`` (B,) last."""
+    k = flat.shape[1]
+    scores = torch.where(torch.arange(k, device=flat.device) < valid[:, None],
+                         scores.double(), -math.inf)
+    by_index = torch.argsort(flat, dim=1, stable=True)
+    by_score = torch.argsort(scores.gather(1, by_index), dim=1,
+                             descending=True, stable=True)
+    return flat.gather(1, by_index.gather(1, by_score))
+
+
+def plain_step_record(ops, k, start_id, end_id, steps, images,
+                      acc=torch.float32, replay=None):
+    """K2's plain version (``ops.fused_beam._search_plain``) for ``steps``
+    steps, sums and state in ``acc``: ``{"choices": {t: (B, k) flat
+    indices of step t's top-k in rank order}, "cands": {t: (len(images),
+    k * V) the candidates of ``images`` at step t}}`` for each step run.
+    With ``replay`` (another run's choices) each step takes those instead
+    of its own top-k: the float64 arbiter follows the f32 run's beams, so
+    its candidates are the same beams' scores."""
+    from .decoding.beam import _top_k
+    from .ops.fused_beam import _search_plain
+
+    out = {"choices": {}, "cands": {}}
+
+    def top_k(flat, n):
+        t = len(out["choices"]) + 1
+        out["cands"][t] = flat[images].clone()
+        if replay is None:
+            values, idx = _top_k(flat, n)
+        else:
+            idx = replay[t]
+            values = flat.gather(1, idx)
+        out["choices"][t] = idx.clone()
+        return values, idx
+
+    _search_plain(ops, k, start_id, end_id, steps, acc=acc, top_k=top_k)
+    return out
+
+
+def k2_step_record(ops, k, start_id, end_id, steps, images):
+    """K2 stopped after each step t = 1..``steps`` (a launch each) and read
+    through its workspace views (``ops.fused_beam._scratch``):
+    ``{"choices": {t: (B, k) flat indices of K2's choice in rank order},
+    "cands": {t: (len(images), k * V) f32 candidates of ``images``}},
+    "consistent": {t: (B,) bool}, "prefix_equal": bool}``.
+
+    A step's candidates are rebuilt as phase E forms them, (logits - lse)
+    + the running scores left by the launch stopped after t - 1, NEG_INF
+    on rows not live. ``consistent``: K2's stored scores of its choice
+    equal those candidates bit for bit, and its choice is their top-k in
+    ``lax.top_k`` order (its cutoff prefilter dropped no candidate that
+    belongs there). ``prefix_equal``: every stopped launch's parents and
+    alphas equal a full launch's for the steps it ran, bit for bit, on a
+    grid of the same blocks."""
+    from .decoding.beam import NEG_INF, _top_k
+    from .ops import fused_beam
+
+    full = fused_beam._launch(ops, k, start_id, end_id, steps)
+    blocks = fused_beam.beam_search_fused.grid_blocks
+    b, v = ops["enc"].shape[0], ops["emb"].shape[0]
+    slots = torch.arange(k, device=ops["enc"].device)
+    cum = torch.zeros((b, k), dtype=torch.float32, device=slots.device)
+    valid = torch.full((b,), k, dtype=torch.long, device=slots.device)
+    out = {"choices": {}, "cands": {}, "consistent": {},
+           "prefix_equal": True}
+    for t in range(1, steps + 1):
+        raw = fused_beam._launch(ops, k, start_id, end_id, t)
+        out["prefix_equal"] &= (
+            fused_beam.beam_search_fused.grid_blocks == blocks
+            and torch.equal(raw["parent"][1:t + 1], full["parent"][1:t + 1])
+            and torch.equal(raw["alpha"][1:t + 1], full["alpha"][1:t + 1]))
+        sc = raw["scratch"]
+        live = (slots == 0) if t == 1 else slots < valid[:, None]
+        cand = torch.where(
+            live.expand(b, k)[..., None],
+            (sc["logits"].float().view(b, k, v) - sc["lse"].view(b, k, 1))
+            + cum[..., None], NEG_INF).view(b, k * v)
+        flat = raw["parent"][t].long() * v + sc["words"].view(b, k).long()
+        score = sc["cum"].view(b, k)
+        choice = rank_order(flat, score, valid)
+        own = _top_k(cand, k)[1]
+        ok = slots < valid[:, None]
+        out["consistent"][t] = (
+            ((choice == own) | ~ok).all(dim=1)
+            & ((cand.gather(1, flat) == score) | ~ok).all(dim=1))
+        out["choices"][t] = choice
+        out["cands"][t] = cand[images].clone()
+        cum = score.clone()
+        valid = sc["kact"].long().clone()
+    return out
+
+
+def explain_splits(k2, plain, arbiter, images, k, v, end_id):
+    """For each of ``images``: the first step whose choice differs between
+    K2 and its f32 plain version (records of ``k2_step_record`` and
+    ``plain_step_record``; ``arbiter``'s from the float64 replay), and
+    there each rank whose candidate differs, as a pair (K2's, the plain
+    version's) of (prev, word): their scores in all three, the f64 gap
+    between them, and each f32 version's error against f64 on the pair
+    (the sum over its two candidates). A pair is explained when the gap
+    is no larger than the two errors together: rounding alone can then
+    order it either way. A split is explained when every pair is and K2
+    was consistent (its choice the top-k of its own scores) up to it.
+    Returns one dict a split, with ``step`` None where no choice
+    differs within the steps recorded."""
+    steps = sorted(plain["choices"])
+    out = []
+    for n, img in enumerate(images):
+        valid = k
+        rec = dict(image=int(img), step=None, explained=False)
+        for t in steps:
+            got, want = k2["choices"][t][img], plain["choices"][t][img]
+            if not torch.equal(got[:valid], want[:valid]):
+                rec.update(_split_pairs(k2, plain, arbiter, t, n, got, want,
+                                        valid, v))
+                rec["k2_consistent"] = all(
+                    bool(k2["consistent"][u][img]) for u in steps if u <= t)
+                rec["explained"] = rec["k2_consistent"] and all(
+                    p["explained"] for p in rec["pairs"])
+                break
+            valid = int(sum(int(i) % v != end_id for i in want[:valid]))
+        out.append(rec)
+    return out
+
+
+def _split_pairs(k2, plain, arbiter, t, n, got, want, valid, v):
+    """The pairs of one split (explain_splits) and the image's largest f32
+    errors against f64 over its live candidates at that step."""
+    ck = k2["cands"][t][n].double()
+    cp = plain["cands"][t][n].double()
+    ca = arbiter["cands"][t][n]
+    pairs, seen = [], set()
+    for rank in range(valid):
+        a, b = int(got[rank]), int(want[rank])
+        if a == b or frozenset((a, b)) in seen:
+            continue
+        seen.add(frozenset((a, b)))
+        sk, sp, sa = ([float(c[i]) for i in (a, b)] for c in (ck, cp, ca))
+        gap = abs(sa[0] - sa[1])
+        err_k2 = abs(sk[0] - sa[0]) + abs(sk[1] - sa[1])
+        err_plain = abs(sp[0] - sa[0]) + abs(sp[1] - sa[1])
+        pairs.append(dict(
+            rank=rank, k2=[a // v, a % v], plain=[b // v, b % v],
+            k2_scores=sk, plain_scores=sp, f64_scores=sa, gap_f64=gap,
+            err_k2=err_k2, err_plain=err_plain,
+            f32_ulp=float(np.spacing(np.float32(abs(sa[0])))),
+            f64_prefers=("k2" if sa[0] > sa[1] else
+                         "plain" if sa[1] > sa[0] else "tie"),
+            explained=gap <= err_k2 + err_plain))
+    live = ca > -1e8
+    return dict(step=t, pairs=pairs,
+                image_err_k2=float((ck - ca)[live].abs().max()),
+                image_err_plain=float((cp - ca)[live].abs().max()))
+
+
+def trace_k2_splits(ops, k, start_id, end_id, images, steps):
+    """K2's splits from its f32 plain version on ``images``, traced over
+    the first ``steps`` steps against the float64 arbiter
+    (``explain_splits``; ``k2_step_record`` launches K2 ``steps`` + 1
+    times). Returns (the splits, K2's record's ``prefix_equal``)."""
+    images = list(images)
+    if not images:
+        return [], True
+    plain = plain_step_record(ops, k, start_id, end_id, steps, images)
+    steps = len(plain["choices"])
+    arbiter = plain_step_record(ops, k, start_id, end_id, steps, images,
+                                acc=torch.float64, replay=plain["choices"])
+    k2 = k2_step_record(ops, k, start_id, end_id, steps, images)
+    v = ops["emb"].shape[0]
+    return (explain_splits(k2, plain, arbiter, images, k, v, end_id),
+            k2["prefix_equal"])

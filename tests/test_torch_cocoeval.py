@@ -299,3 +299,73 @@ def test_show_anns_and_info_equal_icd_tpus(capsys):
     half = len(out) // 2
     assert out[:half] == out[half:] == ["year: 2017", "version: 1.0",
                                         "a cat"]
+
+
+def _download_index(cls, src, n=4):
+    """An index of n images whose coco_url are file:// URLs of files in
+    ``src`` (no network)."""
+    src.mkdir(exist_ok=True)
+    images = []
+    for i in range(n):
+        path = src / "src_{}.jpg".format(i)
+        path.write_bytes(bytes(range(i, i + 40)) * (i + 1))
+        images.append({"id": 10 + i, "file_name": "img_{}.jpg".format(i),
+                       "height": H, "width": W,
+                       "coco_url": path.as_uri()})
+    return _index(cls, {"images": images, "annotations": [],
+                        "categories": []})
+
+
+def _fetches(monkeypatch):
+    """Count urlretrieve's calls (both packages import it at the call)."""
+    import urllib.request
+
+    calls = []
+    real = urllib.request.urlretrieve
+
+    def counted(url, fname):
+        calls.append(url)
+        return real(url, fname)
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", counted)
+    return calls
+
+
+@pytest.mark.parametrize("img_ids", [[], [11, 13]])
+def test_download_equals_icd_tpus(tmp_path, capsys, monkeypatch, img_ids):
+    """``download`` writes the same files as icd_tpu's from file:// URLs
+    (every image, or those of ``imgIds``), prints the same lines apart
+    from the seconds, and fetches no file that is already there."""
+    import re
+
+    calls = _fetches(monkeypatch)
+    written, printed = [], []
+    for cls, name in ((COCO, "port"), (JaxCOCO, "jax")):
+        coco = _download_index(cls, tmp_path / "src")
+        out = tmp_path / name / "nested"
+        assert coco.download(str(out), imgIds=img_ids) is None
+        written.append({p.name: p.read_bytes() for p in out.iterdir()})
+        printed.append([re.sub(r"t=[0-9.]+s", "t=s", line) for line in
+                        capsys.readouterr().out.splitlines()])
+    want = img_ids or list(range(10, 14))
+    assert written[0] == written[1]
+    assert sorted(written[0]) == ["img_{}.jpg".format(i - 10) for i in want]
+    assert all(written[0]["img_{}.jpg".format(i - 10)]
+               == (tmp_path / "src" / "src_{}.jpg".format(i - 10)).read_bytes()
+               for i in want)
+    assert printed[0] == printed[1] == [
+        "downloaded {}/{} images (t=s)".format(i, len(want))
+        for i in range(len(want))]
+    assert len(calls) == 2 * len(want)
+    # A second call finds every file there and fetches none.
+    coco = _download_index(COCO, tmp_path / "src")
+    coco.download(str(tmp_path / "port" / "nested"), imgIds=img_ids)
+    assert len(calls) == 2 * len(want)
+    assert len(capsys.readouterr().out.splitlines()) == len(want)
+
+
+def test_download_without_a_directory_equals_icd_tpus(capsys):
+    for cls in (COCO, JaxCOCO):
+        assert _index(cls, {"images": []}).download() == -1
+    assert capsys.readouterr().out.splitlines() == [
+        "Please specify target directory"] * 2

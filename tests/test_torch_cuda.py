@@ -70,11 +70,13 @@ from icd_tpu_torch.ops.fused_attention import (fused_attention,
                                                fused_attention_reference)
 from icd_tpu_torch.ops.fused_beam import (beam_search_fused,
                                           beam_search_fused_reference)
+from icd_tpu_torch.ops.image import resize_bilinear
 from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
 from icd_tpu_torch.ops.quant import conv2d_int8, gemm_layout, int_mm
 from icd_tpu_torch.params import adam_moments
 from icd_tpu_torch.testing import (SCORE_BIAS, SharedQuantization,
-                                   decoder_grads, relative_errors,
+                                   decoder_grads, k2_step_record,
+                                   plain_step_record, relative_errors,
                                    seeded_captions, steered_decoder,
                                    train_step_errors, train_step_record)
 
@@ -399,6 +401,56 @@ def test_k2_phase_clock(card):
     event_ms = begin.elapsed_time(finish)
     assert abs(ms["total"] - event_ms) <= 0.1 * event_ms, (ms, event_ms)
     assert sum(ms[name] for name in fused_beam.PHASES) <= ms["total"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_workspace_views(card, dtype):
+    """K2 stopped after each step and read through its workspace views
+    (``ops.fused_beam._scratch``, testing.k2_step_record): each stopped
+    launch's parents and alphas equal the full launch's, bit for bit;
+    its stored scores equal the candidates rebuilt from the views,
+    (logits - lse) + the running scores of the launch before, bit for
+    bit, and its choice is their top-k; each live row's lse is its
+    logits' log-sum-exp within 1e-5. In f32 its choices equal the plain
+    version's at every step and its candidates lie within 1e-4 of them
+    (f32 sums in another order over 12 steps of scores near -75)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dec, grids, k, start, end, steps = _k2_problem(card, K2_SHAPES[3],
+                                                   dtype)
+    ops = fused_beam._operands(dec, grids)
+    b, v = grids.shape[0], ops["emb"].shape[0]
+    images = list(range(b))
+    rec = k2_step_record(ops, k, start, end, steps, images)
+    assert rec["prefix_equal"]
+    assert sorted(rec["choices"]) == list(range(1, steps + 1))
+    for t in rec["choices"]:
+        assert bool(rec["consistent"][t].all()), t
+    raw = fused_beam._launch(ops, k, start, end, 3)
+    sc = raw["scratch"]
+    live = torch.arange(k, device=card) < fused_beam._launch(
+        ops, k, start, end, 2)["scratch"]["kact"].long()[:, None]
+    lse = torch.logsumexp(sc["logits"].float(), dim=1).view(b, k)
+    torch.testing.assert_close(sc["lse"].view(b, k)[live], lse[live],
+                               atol=1e-5, rtol=0)
+    if dtype == torch.float32:
+        plain = plain_step_record(ops, k, start, end, steps, images)
+        for t, choice in plain["choices"].items():
+            assert torch.equal(rec["choices"][t], choice), t
+            torch.testing.assert_close(rec["cands"][t], plain["cands"][t],
+                                       atol=1e-4, rtol=0)
+
+
+def test_resize_bilinear_card_matches_cpu(card):
+    """ops.image.resize_bilinear (F.interpolate, antialiased) on the card
+    against the CPU at 480x640 -> 224x224, uint8 in: within 2e-3 on the
+    0-255 scale, the limit it is held to against JAX (f32 sums over the
+    antialias taps in another order)."""
+    imgs = torch.randint(0, 256, (4, 480, 640, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(0))
+    out = resize_bilinear(imgs.to(card), (224, 224))
+    assert out.dtype == torch.float32 and out.shape == (4, 224, 224, 3)
+    torch.testing.assert_close(out.cpu(), resize_bilinear(imgs, (224, 224)),
+                               atol=2e-3, rtol=0)
 
 
 def test_k2_rejects_what_it_does_not_take(card):

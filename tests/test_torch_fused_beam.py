@@ -21,8 +21,11 @@ import torch
 from icd_tpu.decoding.beam import beam_search_batched as jax_beam
 from icd_tpu.ops.fused_beam import beam_search_fused as jax_fused
 from icd_tpu_torch.decoding.beam import beam_search_batched
-from icd_tpu_torch.ops.fused_beam import PHASES, beam_search_fused, phase_ms
+from icd_tpu_torch.decoding.beam import _top_k
+from icd_tpu_torch.ops.fused_beam import (PHASES, _operands, _search_plain,
+                                          beam_search_fused, phase_ms)
 from icd_tpu_torch.params import decoder_from_jax
+from icd_tpu_torch.testing import explain_splits, plain_step_record
 from test_torch_beam import END, MAX_STEPS, P, START, _decoder, _grids
 
 K = 5
@@ -98,11 +101,94 @@ def test_no_finish_protocol():
 def test_exact_ties():
     """Duplicated fc columns: twin words tie bit for bit, and the flat
     top-k must take the lower index first, like lax.top_k."""
+    _all_four(_twin_decoder(), _grids())
+
+
+def _twin_decoder():
+    """test_exact_ties' decoder: fc columns 20..36 copy columns 0..16."""
     dec = _decoder(0.2, 0.5)
     twins = np.arange(17)
     dec["fc"]["w"][:, twins + 20] = dec["fc"]["w"][:, twins]
     dec["fc"]["b"][twins + 20] = dec["fc"]["b"][twins]
-    _all_four(dec, _grids())
+    return dec
+
+
+def test_f64_arbiter_takes_f32s_choices_without_near_ties():
+    """K2's plain version with float64 sums and state (the arbiter of
+    trace_k2_splits) makes every choice of the f32 default on a problem
+    whose top-k holds no near tie: at every step each of the first k + 1
+    candidates lies more than 1e-5 above the next in f64 (5.3e-5 at the
+    least), ten f32 ulps at these scores (|score| < 64). The default is
+    the f32 run, bit for bit."""
+    ops = _operands(decoder_from_jax(_decoder(0.2, 0.5)),
+                    torch.from_numpy(_grids()))
+    f32 = _search_plain(ops, K, START, END, MAX_STEPS)
+    same = _search_plain(ops, K, START, END, MAX_STEPS, acc=torch.float32,
+                         top_k=_top_k)
+    f64 = _search_plain(ops, K, START, END, MAX_STEPS, acc=torch.float64)
+    for key in f32:
+        assert (torch.equal(f32[key], same[key]) if key != "steps"
+                else f32[key] == same[key]), key
+    assert f64["alpha"].dtype == torch.float64
+    for key in ("parent", "best_seq", "best_len", "best_step",
+                "best_parent", "found"):
+        assert torch.equal(f32[key], f64[key]), key
+    assert f32["steps"] == f64["steps"]
+    np.testing.assert_allclose(f64["alpha"].numpy(), f32["alpha"].numpy(),
+                               rtol=0, atol=1e-6)
+    images = list(range(4))
+    cands = plain_step_record(ops, K, START, END, MAX_STEPS, images,
+                              acc=torch.float64)["cands"]
+    for t, cand in cands.items():
+        top = torch.sort(cand, dim=1, descending=True).values[:, :K + 2]
+        assert (top[top > -1e8].abs() < 64).all()
+        gaps = (top[:, :-1] - top[:, 1:])[top[:, 1:] > -1e8]  # live pairs
+        assert (gaps > 1e-5).all(), t
+
+
+def test_tracer_reports_a_twin_tie_as_a_zero_f64_gap():
+    """On the twin-column decoder, a stand-in for K2 whose score of a
+    chosen word's twin is one f32 ulp higher takes the twin first: the
+    tracer names the pair (the twin, the word) at that step, with an f64
+    gap of 0 (twin columns give equal sums in any precision) and errors
+    of rounding size (K2's the ulp it was given, within 4 ulps each: the
+    sum over two candidates), so the split is explained."""
+    ops = _operands(decoder_from_jax(_twin_decoder()),
+                    torch.from_numpy(_grids()))
+    images = list(range(4))
+    plain = plain_step_record(ops, K, START, END, MAX_STEPS, images)
+    arbiter = plain_step_record(ops, K, START, END, MAX_STEPS, images,
+                                acc=torch.float64, replay=plain["choices"])
+    v = ops["emb"].shape[0]
+    # Step 1 (every slot valid): image 0's first choice whose word has a
+    # twin; the stand-in raises the twin by one ulp.
+    t, img = 1, 0
+    first = plain["choices"][t][img]
+    rank = next(r for r in range(K) if int(first[r]) % v < 17)
+    word_idx = int(first[rank])
+    twin_idx = word_idx + 20
+    cand = plain["cands"][t].clone()
+    assert cand[img, twin_idx] == cand[img, word_idx]
+    cand[img, twin_idx] = torch.nextafter(cand[img, twin_idx],
+                                          torch.tensor(np.inf))
+    k2 = {"choices": dict(plain["choices"]), "cands": dict(plain["cands"]),
+          "consistent": {u: torch.ones(4, dtype=torch.bool)
+                         for u in plain["choices"]}}
+    k2["choices"][t] = plain["choices"][t].clone()
+    k2["choices"][t][img] = _top_k(cand[img:img + 1], K)[1][0]
+    k2["cands"][t] = cand
+    splits = explain_splits(k2, plain, arbiter, images, K, v, END)
+    assert [s["step"] for s in splits] == [t, None, None, None]
+    rec = splits[0]
+    assert rec["explained"] and rec["k2_consistent"]
+    pair = rec["pairs"][0]
+    prev = word_idx // v
+    assert pair["k2"] == [prev, twin_idx % v]
+    assert pair["plain"] == [prev, word_idx % v]
+    assert pair["rank"] == rank and pair["gap_f64"] == 0.0
+    assert pair["f64_prefers"] == "tie" and pair["explained"]
+    assert 0 < pair["err_k2"] <= 4 * pair["f32_ulp"]
+    assert pair["err_plain"] <= 4 * pair["f32_ulp"]
 
 
 @pytest.mark.parametrize("k", [1, 3])

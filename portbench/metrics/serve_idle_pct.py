@@ -1,0 +1,8 @@
+"""serve_idle_pct: share of the traced serving window with no device
+operation running."""
+
+from ._common import idle_pct
+
+
+def read(reading):
+    return idle_pct(reading)

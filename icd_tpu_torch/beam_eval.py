@@ -20,7 +20,8 @@ path. ``--fused`` decodes each batch with K2
 launch) instead of the per-step loop; ``--int8_grid`` keeps the grid
 int8 inside the per-step loop and cannot go with ``--fused``. The whole
 checkpoint is cast to ``--dtype`` first, as the JAX tool does.
-``--dtype f32`` turns TF32 off.
+``--dtype f32`` turns TF32 off. With ``ICD_TPU_PROFILE=<dir>`` the run
+is traced into ``<dir>/beam_eval/trace.json`` (``utils.profiling``).
 """
 
 import argparse
@@ -30,6 +31,8 @@ import os
 
 import numpy as np
 
+from .utils.profiling import annotate, maybe_profile
+
 
 def caption_images(captioner, img_ids, load_batch, vocab, batch_size,
                    log=print):
@@ -38,23 +41,28 @@ def caption_images(captioner, img_ids, load_batch, vocab, batch_size,
     ``load_batch(ids)`` returns (N, H, W, 3) uint8 images. The last batch
     is padded to ``batch_size`` by repeating its last image, so every
     batch has one shape; only the real images' captions are kept, the
-    words of ``seq[1:seq_len - 1]``. Returns the results list.
+    words of ``seq[1:seq_len - 1]``. Returns the results list. Under a
+    profiler each batch's load is a span ``serve_load``, the fetch of
+    its ids ``serve_fetch`` and their words ``serve_detok``.
     """
     results = []
     for i in range(0, len(img_ids), batch_size):
         chunk = img_ids[i: i + batch_size]
-        imgs = np.asarray(load_batch(chunk))
         valid = len(chunk)
-        if valid < batch_size:
-            imgs = np.concatenate(
-                [imgs, np.repeat(imgs[-1:], batch_size - valid, 0)])
+        with annotate("serve_load"):
+            imgs = np.asarray(load_batch(chunk))
+            if valid < batch_size:
+                imgs = np.concatenate(
+                    [imgs, np.repeat(imgs[-1:], batch_size - valid, 0)])
         out = captioner(imgs)
-        seqs = out["seq"][:valid].cpu().numpy()
-        lens = out["seq_len"][:valid].cpu().numpy()
-        for img_id, seq, n in zip(chunk, seqs, lens):
-            words = [vocab.i2w[int(t)] for t in seq[1: int(n) - 1]]
-            results.append({"image_id": int(img_id),
-                            "caption": " ".join(words)})
+        with annotate("serve_fetch"):
+            seqs = out["seq"][:valid].cpu().numpy()
+            lens = out["seq_len"][:valid].cpu().numpy()
+        with annotate("serve_detok"):
+            for img_id, seq, n in zip(chunk, seqs, lens):
+                words = [vocab.i2w[int(t)] for t in seq[1: int(n) - 1]]
+                results.append({"image_id": int(img_id),
+                                "caption": " ".join(words)})
         log("captioned {}/{}".format(min(i + batch_size, len(img_ids)),
                                      len(img_ids)))
     return results
@@ -91,7 +99,12 @@ def main(argv=None):
     if args.fused and args.int8_grid:
         parser.error("--int8_grid applies to the per-step beam loop only; "
                      "it cannot be combined with --fused")
+    with maybe_profile("beam_eval"):
+        _run(args)
 
+
+def _run(args):
+    """``main``'s work on its parsed arguments."""
     from .checkpoint import load_checkpoint, unpack_checkpoint
     from .data.dataset import COCODataset
     from .decoding.beam import beam_search_batched

@@ -30,6 +30,7 @@ import torch
 
 from ..models.attention import decode_step, init_hidden_state
 from ..ops.quant import div
+from ..utils.profiling import annotate
 
 MAX_STEPS = 51  # reference: breaks when step > 50 (gen_captions.py:119)
 NEG_INF = -1e9
@@ -73,7 +74,9 @@ def beam_search_batched(decoder, encoder_grids, beam_size, start_id, end_id,
     ``int8_grid`` keeps the grid and its attention projection as
     per-image symmetric int8 and dequantizes both inside each step as
     ``(q.float() * s).to(grid dtype)`` (beam.py:84-86, :132-141); h0 and
-    c0 come from the float grid, as there.
+    c0 come from the float grid, as there. Under a profiler each step's
+    host check is a span ``beam_sync``, the rest of the step a
+    ``beam_step``, and the backtrack a ``beam_backtrack``.
     Returns a dict of tensors on that device:
         seq: (B, max_steps + 1) best complete sequence per image,
             starting with start_id, padded with end_id.
@@ -122,80 +125,85 @@ def beam_search_batched(decoder, encoder_grids, beam_size, start_id, end_id,
 
     step = 1
     while step <= max_steps:
-        running = k_active > 0
-        if not bool(running.any()):
+        with annotate("beam_sync"):
+            running = k_active > 0
+            done = not bool(running.any())
+        if done:
             break
-        first = step == 1
-        emb = decoder.embedding(prev_words)  # (B, k, E)
-        if int8_grid:
-            enc_t = (enc_q.float() * enc_s).to(enc.dtype)
-            att_t = (att_q.float() * att_s).to(enc.dtype)
-        else:
-            enc_t, att_t = enc, att_enc
-        new_h, new_c, logits, alpha = decode_step(
-            decoder, enc_t, att_t, emb.reshape(b * k, -1),
-            h.reshape(b * k, -1), c.reshape(b * k, -1), rows_per_image=k)
-        new_h = new_h.view(b, k, -1)
-        new_c = new_c.view(b, k, -1)
-        alpha = alpha.view(b, k, p)
-        logprobs = torch.log_softmax(logits.float(), dim=-1).view(b, k, -1)
-        cand = cum_scores[:, :, None] + logprobs  # (B, k, V)
-        if first:
-            row_ok = (slot_ids == 0).expand(b, k)
-        else:
-            row_ok = slot_ids[None] < k_active[:, None]
-        cand = torch.where(row_ok[:, :, None], cand, NEG_INF)
+        with annotate("beam_step"):
+            first = step == 1
+            emb = decoder.embedding(prev_words)  # (B, k, E)
+            if int8_grid:
+                enc_t = (enc_q.float() * enc_s).to(enc.dtype)
+                att_t = (att_q.float() * att_s).to(enc.dtype)
+            else:
+                enc_t, att_t = enc, att_enc
+            new_h, new_c, logits, alpha = decode_step(
+                decoder, enc_t, att_t, emb.reshape(b * k, -1),
+                h.reshape(b * k, -1), c.reshape(b * k, -1), rows_per_image=k)
+            new_h = new_h.view(b, k, -1)
+            new_c = new_c.view(b, k, -1)
+            alpha = alpha.view(b, k, p)
+            logprobs = torch.log_softmax(logits.float(), dim=-1).view(b, k, -1)
+            cand = cum_scores[:, :, None] + logprobs  # (B, k, V)
+            if first:
+                row_ok = (slot_ids == 0).expand(b, k)
+            else:
+                row_ok = slot_ids[None] < k_active[:, None]
+            cand = torch.where(row_ok[:, :, None], cand, NEG_INF)
 
-        top_scores, top_idx = _top_k(cand.view(b, k * vocab_size), k)
-        prev_idx = top_idx // vocab_size
-        next_words = top_idx % vocab_size
-        n_valid = k if first else k_active[:, None]
-        sel_valid = slot_ids[None] < n_valid
+            top_scores, top_idx = _top_k(cand.view(b, k * vocab_size), k)
+            prev_idx = top_idx // vocab_size
+            next_words = top_idx % vocab_size
+            n_valid = k if first else k_active[:, None]
+            sel_valid = slot_ids[None] < n_valid
 
-        sel_seqs = _rows(seqs, prev_idx)
-        sel_seqs[:, :, step] = next_words
-        sel_scores = torch.where(sel_valid, top_scores, NEG_INF)
-        finishing = sel_valid & (next_words == end_id)
+            sel_seqs = _rows(seqs, prev_idx)
+            sel_seqs[:, :, step] = next_words
+            sel_scores = torch.where(sel_valid, top_scores, NEG_INF)
+            finishing = sel_valid & (next_words == end_id)
 
-        # Running best (beam.py:171-187); argmax takes the first maximum.
-        comp_scores = torch.where(finishing, sel_scores, NEG_INF)
-        comp_best = comp_scores.argmax(dim=1)
-        comp_score = comp_scores[image_ids, comp_best]
-        comp_parent = prev_idx[image_ids, comp_best]
-        better = running & (comp_score > best_score)
-        best_score = torch.where(better, comp_score, best_score)
-        best_seq = torch.where(better[:, None],
-                               sel_seqs[image_ids, comp_best], best_seq)
-        best_step = torch.where(better, step, best_step)
-        best_parent = torch.where(better, comp_parent, best_parent)
-        best_last_alpha = torch.where(
-            better[:, None], alpha[image_ids, comp_parent], best_last_alpha)
-        best_len = torch.where(better, step + 1, best_len)
-        found = found | (running & finishing.any(dim=1))
+            # Running best (beam.py:171-187); argmax takes the first maximum.
+            comp_scores = torch.where(finishing, sel_scores, NEG_INF)
+            comp_best = comp_scores.argmax(dim=1)
+            comp_score = comp_scores[image_ids, comp_best]
+            comp_parent = prev_idx[image_ids, comp_best]
+            better = running & (comp_score > best_score)
+            best_score = torch.where(better, comp_score, best_score)
+            best_seq = torch.where(better[:, None],
+                                   sel_seqs[image_ids, comp_best], best_seq)
+            best_step = torch.where(better, step, best_step)
+            best_parent = torch.where(better, comp_parent, best_parent)
+            best_last_alpha = torch.where(
+                better[:, None], alpha[image_ids, comp_parent],
+                best_last_alpha)
+            best_len = torch.where(better, step + 1, best_len)
+            found = found | (running & finishing.any(dim=1))
 
-        # Pack survivors into the leading slots in top-k rank order
-        # (beam.py:189-198); the keys are unique, so the sort is exact.
-        survivor = sel_valid & ~finishing
-        order = torch.argsort(torch.where(survivor, slot_ids, k + slot_ids),
-                              dim=1)
-        sel_parents = prev_idx.gather(1, order)
-        alpha_hist[step] = _where_running(
-            running, _rows(alpha, sel_parents), alpha_hist[step])
-        parent_hist[step] = _where_running(
-            running, sel_parents, parent_hist[step])
+            # Pack survivors into the leading slots in top-k rank order
+            # (beam.py:189-198); the keys are unique, so the sort is exact.
+            survivor = sel_valid & ~finishing
+            order = torch.argsort(
+                torch.where(survivor, slot_ids, k + slot_ids), dim=1)
+            sel_parents = prev_idx.gather(1, order)
+            alpha_hist[step] = _where_running(
+                running, _rows(alpha, sel_parents), alpha_hist[step])
+            parent_hist[step] = _where_running(
+                running, sel_parents, parent_hist[step])
 
-        k_active = _where_running(running, survivor.sum(dim=1), k_active)
-        prev_words = _where_running(running, next_words.gather(1, order),
-                                    prev_words)
-        cum_scores = _where_running(running, sel_scores.gather(1, order),
-                                    cum_scores)
-        seqs = _where_running(running, _rows(sel_seqs, order), seqs)
-        h = _where_running(running, _rows(new_h, sel_parents), h)
-        c = _where_running(running, _rows(new_c, sel_parents), c)
-        step += 1
-    return beam_outputs(alpha_hist, parent_hist, best_seq, best_len,
-                        best_step, best_parent, best_last_alpha, found,
-                        step - 1, start_id, end_id)
+            k_active = _where_running(running, survivor.sum(dim=1), k_active)
+            prev_words = _where_running(running, next_words.gather(1, order),
+                                        prev_words)
+            cum_scores = _where_running(running, sel_scores.gather(1, order),
+                                        cum_scores)
+            seqs = _where_running(running, _rows(sel_seqs, order), seqs)
+            h = _where_running(running, _rows(new_h, sel_parents), h)
+            c = _where_running(running, _rows(new_c, sel_parents), c)
+            step += 1
+    with annotate("beam_backtrack"):
+        return beam_outputs(alpha_hist, parent_hist, best_seq, best_len,
+                            best_step, best_parent, best_last_alpha, found,
+                            step - 1, start_id, end_id)
 
 
 def beam_outputs(alpha_hist, parent_hist, best_seq, best_len, best_step,

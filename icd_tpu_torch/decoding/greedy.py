@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..models.lstm import lstm_cell
 from ..ops.qlinear import qlstm_cell, qmatmul, quantize_linear, quantize_lstm
+from ..utils.profiling import annotate
 
 MAX_STEPS = 50  # reference caps generation at 50 steps (gen_captions.py:119)
 
@@ -32,7 +33,9 @@ def _greedy_tokens(step, h, c, logits, end_id, max_len):
     starts from ``<start>`` rather than from a step already run, freezes
     h and c once a caption has ended and records each step's alphas.
     Both keep the JAX exit policy (first-maximum argmax, ``end_id``
-    after ``<end>``, stop when every caption has ended)."""
+    after ``<end>``, stop when every caption has ended). Under a
+    profiler each later step's host check is a span ``greedy_sync`` and
+    the rest of the step a ``greedy_step``."""
     first = logits.argmax(dim=-1)  # the first maximum, as jnp.argmax
     toks = torch.full((first.shape[0], max_len), end_id, dtype=torch.long,
                       device=first.device)
@@ -40,12 +43,15 @@ def _greedy_tokens(step, h, c, logits, end_id, max_len):
     finished = first == end_id
     tok = first
     for i in range(1, max_len):
-        if bool(finished.all()):
+        with annotate("greedy_sync"):
+            done = bool(finished.all())
+        if done:
             break
-        h, c, logits = step(tok, h, c)
-        tok = torch.where(finished, end_id, logits.argmax(dim=-1))
-        toks[:, i] = tok
-        finished = finished | (tok == end_id)
+        with annotate("greedy_step"):
+            h, c, logits = step(tok, h, c)
+            tok = torch.where(finished, end_id, logits.argmax(dim=-1))
+            toks[:, i] = tok
+            finished = finished | (tok == end_id)
     return toks
 
 

@@ -45,6 +45,7 @@ from ..models.resnet_int8 import (calibrate_act_maxes, quantize_resnet,
                                   tree_to)
 from ..ops.quant import int8_conv
 from ..parallel.mesh import batch_layout, gather_batch
+from ..utils.profiling import annotate
 from .beam import beam_search_batched
 from .greedy import (greedy_decode_baseline, greedy_decode_baseline_int8,
                      quantize_baseline_decoder)
@@ -69,8 +70,10 @@ class Captioner:
 
     @torch.inference_mode()
     def encode(self, imgs):
-        """(B, H, W, 3) uint8 -> (B, 14, 14, D) grid in compute_dtype."""
-        imgs = torch.as_tensor(imgs).to(self.device)
+        """(B, H, W, 3) uint8 -> (B, 14, 14, D) grid in compute_dtype; the
+        upload is a span ``serve_upload`` under a profiler."""
+        with annotate("serve_upload"):
+            imgs = torch.as_tensor(imgs).to(self.device)
         if self.qresnet is not None:
             return encoder_attention_forward_int8(self.qresnet, imgs,
                                                   self.compute_dtype)
@@ -141,8 +144,9 @@ class BaselineCaptioner(Captioner):
     @torch.inference_mode()
     def encode(self, imgs):
         """(B, H, W, 3) uint8 -> (B, embed_size) features in
-        compute_dtype."""
-        imgs = torch.as_tensor(imgs).to(self.device)
+        compute_dtype; the upload is a span ``serve_upload``."""
+        with annotate("serve_upload"):
+            imgs = torch.as_tensor(imgs).to(self.device)
         if self.qresnet is not None:
             return encoder_forward_int8(self.encoder, self.qresnet, imgs,
                                         self.compute_dtype)

@@ -41,6 +41,7 @@ from .. import kernels
 from ..decoding.beam import MAX_STEPS, NEG_INF, _rows, _top_k, beam_outputs
 from ..models.attention import init_hidden_state
 from ..models.lstm import gates_to_state
+from ..utils.profiling import annotate
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BEAMS = 8
@@ -344,9 +345,13 @@ _ARG_ORDER = ("enc", "att_enc", "h0", "c0", "emb", "wd", "bd", "wf", "bf",
 
 
 def _launch(ops, k, start_id, end_id, max_steps):
-    """One K2 search: its raw outputs, ``steps`` read back (a host sync)."""
-    raw = _start(ops, k, start_id, end_id, max_steps)
-    raw["steps"] = int(raw["steps"].item())
+    """One K2 search: its raw outputs, ``steps`` read back (a host sync).
+    Under a profiler the launch is a span ``k2_launch`` and the read-back
+    a ``k2_sync``."""
+    with annotate("k2_launch"):
+        raw = _start(ops, k, start_id, end_id, max_steps)
+    with annotate("k2_sync"):
+        raw["steps"] = int(raw["steps"].item())
     return raw
 
 

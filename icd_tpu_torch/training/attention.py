@@ -51,6 +51,7 @@ from ..models.encoder import (encoder_attention_forward,
 from ..models.resnet import merge_bn_stats
 from ..parallel.mesh import batch_layout, shard_batch
 from ..params import decoder_from_jax, encoder_from_jax
+from ..utils.profiling import annotate
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
 from .common import (as_device_tensor, cast_floating, clip_gradients,
                      cross_entropy, doubly_stochastic_regularizer,
@@ -135,6 +136,10 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
     counts, the gradients summed over the data ranks before clipping,
     and the global loss returned. A batch that does not divide over the
     data ranks comes whole to every rank and is not summed (batch_layout).
+
+    Under a profiler the step's parts are spans ``train_trunk``,
+    ``train_decoder``, ``train_backward`` (with the gradients' sum),
+    ``train_clip``, ``train_adam`` and ``train_bn``.
     """
 
     def step(imgs, captions, decode_lengths, generator=None, embeddings=None,
@@ -142,7 +147,7 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
         n = imgs.shape[0] if batch_size is None else batch_size
         rows, group = batch_layout(mesh, n)
         new_stats = None
-        with torch.no_grad():
+        with torch.no_grad(), annotate("train_trunk"):
             if qresnet is None:
                 grid, new_stats = encoder_attention_forward(
                     encoder, imgs, compute_dtype=compute_dtype, train=True,
@@ -150,17 +155,22 @@ def make_train_step(encoder, decoder, optimizer, alpha_c, dropout_rate,
             else:
                 grid = encoder_attention_forward_int8(
                     qresnet, imgs, compute_dtype or torch.float32)
-        loss = decoder_loss(decoder, grid, captions, decode_lengths,
-                            alpha_c, generator, dropout_rate, compute_dtype,
-                            embeddings, group,
-                            None if mesh is None else (rows, n))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = reduce_gradients(optimizer, loss, group)
-        clip_gradients(optimizer, grad_clip)
-        optimizer.step()
+        with annotate("train_decoder"):
+            loss = decoder_loss(decoder, grid, captions, decode_lengths,
+                                alpha_c, generator, dropout_rate,
+                                compute_dtype, embeddings, group,
+                                None if mesh is None else (rows, n))
+        with annotate("train_backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            loss = reduce_gradients(optimizer, loss, group)
+        with annotate("train_clip"):
+            clip_gradients(optimizer, grad_clip)
+        with annotate("train_adam"):
+            optimizer.step()
         if new_stats is not None:
-            merge_bn_stats(new_stats)
+            with annotate("train_bn"):
+                merge_bn_stats(new_stats)
         return loss
 
     return step

@@ -47,6 +47,7 @@ from ..models.encoder import (encoder_forward, encoder_forward_int8,
 from ..models.resnet import merge_bn_stats
 from ..parallel.mesh import batch_layout
 from ..params import decoder_from_jax, encoder_from_jax
+from ..utils.profiling import annotate
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
 from .common import (as_device_tensor, cast_floating, clip_gradients,
                      eval_batches, is_lead, make_adam, pad_cross_entropy,
@@ -110,29 +111,36 @@ def make_train_step(encoder, decoder, optimizer, pad_idx, grad_clip=None,
 
     On a ``mesh`` the step takes this rank's rows of a global batch of
     ``batch_size`` and runs the JAX step's global semantics, as the
-    attention model's ``make_train_step`` says.
+    attention model's ``make_train_step`` says, and it has that step's
+    spans (``train_trunk`` holds the head).
     """
 
     def step(imgs, captions, batch_size=None):
         _, group = batch_layout(
             mesh, imgs.shape[0] if batch_size is None else batch_size)
         new_stats = None
-        if qresnet is None:
-            feats, new_stats = encoder_forward(
-                encoder, imgs, compute_dtype=compute_dtype, train=True,
-                group=group)
-        else:
-            feats = encoder_forward_int8(encoder, qresnet, imgs,
-                                         compute_dtype or torch.float32)
-        loss = decoder_loss(decoder, feats, captions, pad_idx, compute_dtype,
-                            group)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = reduce_gradients(optimizer, loss, group)
-        clip_gradients(optimizer, grad_clip)
-        optimizer.step()
+        with annotate("train_trunk"):
+            if qresnet is None:
+                feats, new_stats = encoder_forward(
+                    encoder, imgs, compute_dtype=compute_dtype, train=True,
+                    group=group)
+            else:
+                feats = encoder_forward_int8(encoder, qresnet, imgs,
+                                             compute_dtype or torch.float32)
+        with annotate("train_decoder"):
+            loss = decoder_loss(decoder, feats, captions, pad_idx,
+                                compute_dtype, group)
+        with annotate("train_backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            loss = reduce_gradients(optimizer, loss, group)
+        with annotate("train_clip"):
+            clip_gradients(optimizer, grad_clip)
+        with annotate("train_adam"):
+            optimizer.step()
         if new_stats is not None:
-            merge_bn_stats(new_stats)
+            with annotate("train_bn"):
+                merge_bn_stats(new_stats)
         return loss
 
     return step

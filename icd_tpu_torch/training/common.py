@@ -101,9 +101,10 @@ class LossDrain:
     def flush(self):
         if not self._pending:
             return
-        vals = torch.stack([p[0] for p in self._pending]).tolist()
-        for val, (_, batch_idx, dt) in zip(vals, self._pending):
-            self.finish(float(val), batch_idx, dt)
+        with annotate("train_drain"):
+            vals = torch.stack([p[0] for p in self._pending]).tolist()
+            for val, (_, batch_idx, dt) in zip(vals, self._pending):
+                self.finish(float(val), batch_idx, dt)
         self._pending = []
 
 
@@ -393,7 +394,9 @@ def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
     memory) or of tensors already on the device (``stage_batches``), and
     returns the loss on the device, not synchronised. Losses are fetched
     in blocks (``LossDrain``) and printed, unless not ``verbose``, as
-    the JAX train loops print them. Returns the per-batch losses.
+    the JAX train loops print them. Returns the per-batch losses. Under
+    a profiler each fetch of a batch is a span ``train_wait``, each step
+    a ``train_step`` and each fetch of losses a ``train_drain``.
     """
     if num_batches is None:
         num_batches = len(batches)
@@ -411,9 +414,17 @@ def train_epoch(step, batches, epoch=0, epochs=1, num_batches=None,
                 accum_loss.avg(), accum_time.val))
 
     drain = LossDrain(finish)
-    for batch_idx, batch in enumerate(batches):
+    batches = iter(batches)
+    batch_idx = 0
+    while True:
+        with annotate("train_wait"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         with annotate("train_step"):
-            drain.push(step(batch), batch_idx)
+            loss = step(batch)
+        drain.push(loss, batch_idx)
+        batch_idx += 1
     drain.flush()
     return batch_losses
 

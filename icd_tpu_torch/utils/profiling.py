@@ -1,14 +1,36 @@
 """Profiling hooks (port of ``icd_tpu/utils/profiling.py``).
 
-Set ``ICD_TPU_PROFILE=/path/to/dir`` and each training run is traced by
-``torch.profiler`` (host activity, and the card's kernels and copies
-when it runs on one), written as a Chrome trace under
-``dir/<name>/``; ``annotate`` adds named spans (a train step, a batch's
-wait, a checkpoint save). Unset, neither does anything.
+``annotate(name)`` is a named span (``torch.profiler.record_function``)
+whenever a ``torch.profiler`` is recording in the process, whoever
+started it; otherwise it is one shared context that does nothing. The
+spans are on the dispatching thread, on the clock of the profiler's
+device trace:
+
+- serving: ``serve_load``, ``serve_fetch``, ``serve_detok``
+  (``beam_eval.caption_images``), ``serve_upload`` (the captioners'
+  ``encode``), ``beam_step`` / ``beam_sync`` / ``beam_backtrack``
+  (``decoding/beam.py``), ``greedy_step`` / ``greedy_sync``
+  (``decoding/greedy.py``), ``k2_launch`` / ``k2_sync``
+  (``ops/fused_beam.py``);
+- training: ``train_wait``, ``train_step``, ``train_drain``,
+  ``checkpoint`` (``training/common.py``) and inside a step
+  ``train_trunk``, ``train_decoder``, ``train_backward``,
+  ``train_clip``, ``train_adam``, ``train_bn`` (both families'
+  ``make_train_step``).
+
+``ICD_TPU_PROFILE=/path/to/dir`` makes ``maybe_profile`` record such a
+trace, with the card's kernels and copies when it runs on one, and
+write it as a Chrome trace under ``dir/<name>/``: each training run
+(``train_<model_name>``) and each ``beam_eval`` run. Unset, it does
+nothing.
 """
 
 import contextlib
 import os
+
+import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -19,8 +41,6 @@ def maybe_profile(name="trace"):
     if not target:
         yield
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -34,10 +54,8 @@ def maybe_profile(name="trace"):
 
 
 def annotate(name):
-    """A named span in the trace (``torch.profiler.record_function``)
-    while ``ICD_TPU_PROFILE`` is set, else a context that does nothing."""
-    if not os.environ.get("ICD_TPU_PROFILE"):
-        return contextlib.nullcontext()
-    import torch
-
-    return torch.profiler.record_function(name)
+    """A span ``name`` in the trace while a profiler records, else the
+    shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

@@ -19,10 +19,10 @@ the val-split beam eval, training, the file-fed serving bench).
 Phases, one line of output each:
 
 1. build       compile every kernel from csrc/ (one nvcc per source, all
-               at once) and print the build seconds; then k1_ptxas and
-               k2_ptxas, registers and spill bytes of each bf16 kernel
-               entry of K1 (its gate and attention kernels) and of K2,
-               which must show no spills;
+               at once) and print the build seconds; then k1_ptxas,
+               k2_ptxas and k3_ptxas, registers and spill bytes of each
+               bf16 kernel entry of K1 (its gate and attention kernels),
+               of K2 and of K3, which must show no spills;
 2. k1          K1 (fused attention) against its plain PyTorch version, at
                a ragged shape and at the serving shapes: 64 images x 5
                beams, P=196, D=2048,
@@ -41,6 +41,21 @@ Phases, one line of output each:
                and K1 at one row per image (greedy decoding's shape, 64
                images), f32 and bf16 within the same tolerances, timed
                with its bound;
+   k3          K3 (the float trunk's eval-mode BN, ReLU and residual
+               add in one pass) equal to its plain version, the eager
+               chain, at every distinct BN site of ResNet-101 at batch 64
+               (bf16 activations, f32 statistics, as served); then one
+               whole encoder's epilogue, its 100 launches at batch 64
+               through resnet.bn_relu (the trunk's path), timed (CUDA
+               events, L2 flushed before, the card asleep while the host
+               sets it up) beside its bound and the plain version's
+               time, and the host's median time to issue a launch. Every
+               later phase reads K3's counter beside K1's and K2's: 100
+               launches a float eval forward (serve_bf16,
+               serve_fused_bf16, path_f32, greedy, beam_eval, the int8
+               calibration's float pass, the f32 validation and demo
+               paths, gen_captions_file), none on the int8 trunk and in
+               the train steps; the kernels line records each reading;
    int8_conv   ops.quant.conv2d_int8 (im2col + torch._int_mm) on the card
                at every distinct ResNet-101 convolution site at batch 2
                (the 7x7/2 stem with K padded, the 1x1 and 3x3 sites, the
@@ -408,14 +423,15 @@ def log(phase, **fields):
 
 
 def kernel_counters():
+    from icd_tpu_torch.ops.bn_epilogue import bn_epilogue
     from icd_tpu_torch.ops.fused_attention import fused_attention
     from icd_tpu_torch.ops.fused_beam import beam_search_fused
 
-    return [fused_attention, beam_search_fused]
+    return [fused_attention, beam_search_fused, bn_epilogue]
 
 
 def zero_counters():
-    """K1's and K2's wrappers, their launch counts set to 0."""
+    """K1's, K2's and K3's wrappers, their launch counts set to 0."""
     counters = kernel_counters()
     for c in counters:
         c.launches = 0
@@ -442,6 +458,7 @@ def phase_build():
     ptxas_line("k1_ptxas", reports["fused_attention"][1],
                ("k1_gate", "k1_attention"))
     ptxas_line("k2_ptxas", reports["fused_beam"][1], ("fused_beam",))
+    ptxas_line("k3_ptxas", reports["bn_epilogue"][1], ("bn_epilogue",))
 
 
 def ptxas_line(phase, report, kernels):
@@ -539,6 +556,73 @@ def phase_k1(results):
         rows_per_image_1=results["fused_attention"]["rows_per_image_1"])
 
 
+def phase_k3(results):
+    """K3 against the eager chain at every distinct BN site of ResNet-101
+    at batch 64 (bf16, f32 statistics), then one encoder's 100 launches
+    through ``resnet.bn_relu`` (the trunk's path: prepared terms) timed
+    beside their bound and the plain version, and the host's time to
+    issue them."""
+    import torch
+
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.models.resnet import bn_relu, bn_terms
+    from icd_tpu_torch.ops.bn_epilogue import (bn_epilogue,
+                                               bn_epilogue_reference,
+                                               bound_ms)
+    from icd_tpu_torch.testing import bn_epilogue_case, bn_epilogue_sites
+
+    results["bn_epilogue"] = dict(launches_by_path={})
+    gen = torch.Generator().manual_seed(3)
+    sites = bn_epilogue_sites(IMAGES)
+    cases, plain = {}, {}
+    with torch.inference_mode():
+        for site in sites:
+            if site in cases:
+                continue
+            x, bn, cd, r, sc = bn_epilogue_case(*site, gen, "bf16_keep",
+                                                "cuda")
+            cases[site] = (x, bn, cd, r, sc)
+            plain[site] = (x, bn_terms(bn, cd), r, None if sc is None else
+                           (sc[0], bn_terms(sc[1], cd)))
+            check(torch.equal(bn_relu(*cases[site]),
+                              bn_epilogue_reference(*plain[site])),
+                  "K3 equals the eager chain", site)
+
+        def kernel():
+            for site in sites:
+                bn_relu(*cases[site])
+
+        def reference():
+            for site in sites:
+                bn_epilogue_reference(*plain[site])
+
+        zero_counters()
+        kernel()
+        torch.cuda.synchronize()
+        check(bn_epilogue.launches == len(sites) == 100,
+              "K3 launches an encoder", bn_epilogue.launches)
+        record_k3(results, "k3_encoder_bf16", bn_epilogue.launches)
+        host = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kernel()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        host_us = sorted(host)[len(host) // 2] / len(sites) * 1e6
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+        kernel_ms = time_ms(kernel, flush=flush, settle=True)
+        plain_ms = time_ms(reference, flush=flush, settle=True)
+    bound = bound_ms(sites)
+    results["bn_epilogue"].update(
+        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+        host_us_per_launch=host_us)
+    log("k3", batch=IMAGES, sites=len(sites), distinct_sites=len(cases),
+        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes", share_of_bound=bound / kernel_ms,
+        host_us_per_launch=host_us)
+
+
 def k1_one_row(args32, flush):
     """K1 at greedy decoding's shape, one row per image for 64 images, in
     f32 and bf16 against its plain version (the tolerances of phase_k1),
@@ -621,20 +705,21 @@ def calibrate_bn(encoder, imgs):
     import icd_tpu_torch.models.resnet as resnet
     from icd_tpu_torch.models.encoder import encoder_attention_forward
 
-    plain = resnet.batch_norm
+    plain = resnet.bn_relu
 
-    def estimating(x, bn, compute_dtype=None):
-        xf = x.float().reshape(-1, x.shape[-1])
-        bn.mean.copy_(xf.mean(0))
-        bn.var.copy_(xf.var(0))
-        return plain(x, bn, compute_dtype)
+    def estimating(x, bn, compute_dtype=None, residual=None, shortcut=None):
+        for y, m in [(x, bn)] + ([shortcut] if shortcut else []):
+            yf = y.float().reshape(-1, y.shape[-1])
+            m.mean.copy_(yf.mean(0))
+            m.var.copy_(yf.var(0))
+        return plain(x, bn, compute_dtype, residual, shortcut)
 
-    resnet.batch_norm = estimating
+    resnet.bn_relu = estimating
     try:
         with torch.no_grad():
             encoder_attention_forward(encoder, imgs.to("cuda"))
     finally:
-        resnet.batch_norm = plain
+        resnet.bn_relu = plain
 
 
 def full_width_models():
@@ -685,7 +770,7 @@ def plain_attention():
         greedy.fused_attention = kernel
 
 
-def phase_path_f32(models):
+def phase_path_f32(models, results):
     import torch
 
     from icd_tpu_torch.decoding.serve import make_beam_captioner
@@ -699,7 +784,9 @@ def phase_path_f32(models):
                                     device="cuda")
     check(not torch.backends.cudnn.allow_tf32, "TF32 off for f32")
     imgs = uint8_images(8, seed=2)
+    zero_counters()
     grid = captioner.encode(imgs)
+    check_k3(results, "path_f32", 100)
     with torch.inference_mode():
         cpu_grid = encoder_attention_forward(copy.deepcopy(encoder).cpu(),
                                              imgs[:1])
@@ -821,6 +908,7 @@ def phase_serve_bf16(models, results):
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    check_k3(results, "serve_bf16", 100)
     out = captioner.decode(grid)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -914,6 +1002,7 @@ def phase_serve_fused_bf16(models, results):
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    check_k3(results, "serve_fused_bf16", 100)
     out = captioner.decode(grid)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -1073,6 +1162,8 @@ def phase_beam_eval(captioner, results, phase="beam_eval"):
     check([r["image_id"] for r in rows] == img_ids, phase + " image ids")
     check(all(isinstance(r["caption"], str) for r in rows),
           phase + " captions")
+    # The float trunk launches K3 100 times a batch; the int8 one never.
+    check_k3(results, phase, 0 if captioner.qresnet is not None else 300)
     if captioner.beam_fn is beam_search_fused:
         check(k2 == 3 and k1 == 0, "K2 launches for 3 batches", k2, k1)
         results["fused_beam"]["launches_by_path"][phase] = k2
@@ -1189,8 +1280,8 @@ def int8_block_errors(resnet, qresnet, imgs):
     fault (a large local error) from a trunk that amplifies small ones."""
     import torch
 
-    from icd_tpu_torch.models.resnet import (_bottleneck, batch_norm,
-                                             conv2d, max_pool)
+    from icd_tpu_torch.models.resnet import (_bottleneck, bn_relu, conv2d,
+                                             max_pool)
     from icd_tpu_torch.models.resnet_int8 import _qconv
     from icd_tpu_torch.ops.image import normalize_imagenet
 
@@ -1208,8 +1299,7 @@ def int8_block_errors(resnet, qresnet, imgs):
     local, cumulative = [], []
     with torch.inference_mode():
         x = normalize_imagenet(imgs)
-        f = batch_norm(conv2d(x, resnet.stem.conv, 2, 3),
-                       resnet.stem.bn).relu()
+        f = bn_relu(conv2d(x, resnet.stem.conv, 2, 3), resnet.stem.bn)
         q = torch.relu(_qconv(x, qresnet["stem"], stride=2, padding=3))
         stem = rel(q, f)
         f, q = max_pool(f), max_pool(q)
@@ -1226,7 +1316,7 @@ def int8_block_errors(resnet, qresnet, imgs):
                 cumulative_after_each_stage=cumulative)
 
 
-def phase_int8_encoder(models):
+def phase_int8_encoder(models, results):
     """Calibrate and quantize; the int8 grid against the CPU and against
     the float grid; int8 and float encoder ms. Returns the act_maxes."""
     import numpy as np
@@ -1242,11 +1332,14 @@ def phase_int8_encoder(models):
 
     encoder, decoder = models
     bf16 = torch.bfloat16
+    zero_counters()
     t0 = time.perf_counter()
     qresnet, act_maxes = build_int8_backbone(
         encoder, bf16, "cuda", calib_imgs=uint8_images(16, seed=1))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    # Calibration: one float forward over the 16 images.
+    check_k3(results, "int8_calibration", 100)
     check(act_maxes.shape == (N_SITES_RESNET101,)
           and bool(np.isfinite(act_maxes).all()), "act_maxes",
           act_maxes.shape)
@@ -1327,8 +1420,8 @@ def greedy_steps(tokens, max_len):
 
 def timed_serve(captioner, imgs):
     """One warmed-up batch through ``captioner``: (output, encoder ms,
-    decode ms, launches of K1 and K2, peak bytes). The counters are set
-    to 0 just before the batch and read just after it."""
+    decode ms, launches of K1, K2 and K3, peak bytes). The counters are
+    set to 0 just before the batch and read just after it."""
     import torch
 
     captioner(imgs)  # warm-up: cuBLASLt and cuDNN plans, kernel load
@@ -1395,7 +1488,8 @@ def phase_greedy(models, results):
                                     compute_dtype=torch.bfloat16,
                                     device="cuda")
     imgs = uint8_images(IMAGES, seed=3).cuda()
-    out, enc_ms, dec_ms, (k1, _), peak = timed_serve(bf16, imgs)
+    out, enc_ms, dec_ms, (k1, _, _), peak = timed_serve(bf16, imgs)
+    check_k3(results, "greedy_bf16", 100)
     steps64 = greedy_steps(out[0], max_len)
     check(k1 > 0 and k1 == steps64, "bf16 greedy K1 launches vs steps", k1,
           steps64)
@@ -1426,9 +1520,10 @@ def phase_serve_int8_greedy(models, act_maxes, results):
             encoder, decoder, START_ID, END_ID, max_len=max_len,
             compute_dtype=torch.bfloat16, act_maxes=act_maxes,
             int8_decoder=int8_decoder, device="cuda")
-        out, enc_ms, dec_ms, (k1, _), peak = timed_serve(cap, imgs)
+        out, enc_ms, dec_ms, (k1, _, _), peak = timed_serve(cap, imgs)
         steps = greedy_steps(out[0], max_len)
         name = "int8_decoder" if int8_decoder else "float_decoder"
+        check_k3(results, "serve_int8_greedy_bf16/" + name, 0)
         check(k1 > 0 and k1 == steps, name + " K1 launches vs steps", k1,
               steps)
         finished = check_greedy(out, IMAGES, max_len, name)
@@ -1485,7 +1580,8 @@ def phase_serve_int8_beam(models, act_maxes, results):
                                   compute_dtype=torch.bfloat16,
                                   device="cuda", beam_fn=beam_fn,
                                   act_maxes=act_maxes)
-        out, enc_ms, beam_ms, (k1, k2), peak = timed_serve(cap, imgs)
+        out, enc_ms, beam_ms, (k1, k2, _), peak = timed_serve(cap, imgs)
+        check_k3(results, "serve_int8_beam_bf16/" + name, 0)
         if name == "fused":
             check(k2 == 1 and k1 == 0, "int8 fused launches", k1, k2)
             results["fused_beam"]["launches_by_path"][
@@ -1533,12 +1629,33 @@ def baseline_models(models):
     return Encoder(models[0].resnet, embed), decoder
 
 
-def check_no_kernel(counters, what, results):
-    """The baseline paths run no kernel: K1 and K2 launched no time."""
+def check_no_kernel(counters, what, results, k3=0):
+    """A path that decodes without K1 and K2: neither launched, and K3
+    ``k3`` times (100 a forward of the float trunk in eval mode, none in
+    train mode or on the int8 trunk; None: read, not checked). Records
+    the three counts."""
     launches = [c.launches for c in counters]
-    check(launches == [0, 0], what + ": K1, K2 launched", launches)
+    check(launches[:2] == [0, 0], what + ": K1, K2 launched", launches)
+    check(k3 is None or launches[2] == k3, what + ": K3 launches",
+          launches[2], k3)
+    record_k3(results, what, launches[2])
     results["fused_attention"]["launches_by_path"][what] = launches[0]
     results["fused_beam"]["launches_by_path"][what] = launches[1]
+
+
+def record_k3(results, what, launches):
+    results["bn_epilogue"]["launches_by_path"][what] = launches
+
+
+def check_k3(results, what, expected):
+    """K3's launches since the counters were set to 0, against
+    ``expected`` (100 a forward of the float trunk in eval mode, 0 on
+    the int8 trunk); recorded under ``what``."""
+    from icd_tpu_torch.ops.bn_epilogue import bn_epilogue
+
+    check(bn_epilogue.launches == expected, what + ": K3 launches",
+          bn_epilogue.launches, expected)
+    record_k3(results, what, bn_epilogue.launches)
 
 
 def phase_baseline_f32(base, results):
@@ -1560,7 +1677,7 @@ def phase_baseline_f32(base, results):
     feats = captioner.encode(imgs)
     toks = captioner.decode(feats)
     torch.cuda.synchronize()
-    check_no_kernel(counters, "baseline_f32", results)
+    check_no_kernel(counters, "baseline_f32", results, k3=100)
     with torch.inference_mode():
         cpu_feats = encoder_forward(copy.deepcopy(encoder).cpu(), imgs[:1])
         cpu_toks = greedy_decode_baseline(
@@ -1612,8 +1729,10 @@ def phase_baseline_serve_bf16(base, act_maxes, results):
     for name, build in builds.items():
         cap = build()
         toks, enc_ms, dec_ms, _, peak = timed_serve(cap, imgs)
+        # The float trunk (the dynamic int8 path's BN too) launches K3
+        # 100 times a batch; the static int8 trunk never.
         check_no_kernel(kernel_counters(), "baseline_serve_bf16/" + name,
-                        results)
+                        results, k3=0 if name.startswith("static") else 100)
         check(toks.shape == (IMAGES, max_len), name + " token shape",
               toks.shape)
         check(bool(((toks >= 0) & (toks < VOCAB)).all())
@@ -1639,7 +1758,7 @@ def phase_bench(base, results):
         counters = zero_counters()
         one, result = bench.measure(encoder, decoder, imgs, mode)
         torch.cuda.synchronize()
-        check_no_kernel(counters, "bench/" + mode, results)
+        check_no_kernel(counters, "bench/" + mode, results, k3=None)
         check(result["value"] > 0 and one["captions_with_end"] == 0
               and one["steps"] == bench.DECODE_LEN
               and one["int8_decoder"] == (mode == "int8"),
@@ -2149,7 +2268,7 @@ def phase_eval_f32(trained, gen, results):
         losses.append(loss.cpu())
         preds.append(pred.cpu())
     eval_s = time.perf_counter() - t0
-    check_no_kernel(counters, "eval_f32", results)
+    check_no_kernel(counters, "eval_f32", results, k3=300)
     losses, preds = torch.cat(losses), torch.cat(preds)
     check(losses.shape == (n,) and preds.shape == (n, 19)
           and bool(losses.isfinite().all()), "eval shapes", losses.shape,
@@ -2345,7 +2464,8 @@ def phase_train_baseline(base, gen, results):
         rows[name] = train_readings(
             run, batches, encode,
             trunk * 1e9 / trunk_peak + dec_gflop * 1e9 / dec_peak)
-        check_no_kernel(counters, "train_baseline/" + name, results)
+        check_no_kernel(counters, "train_baseline/" + name, results,
+                        k3=None if int8 else 0)
         if trained is None:
             trained = (enc, dec)
     learn = {name: learns(baseline_trainer(base, 1e-3, dtype)[0],
@@ -2469,7 +2589,7 @@ def phase_train_int8_step(models, base, gen, results):
         qresnet = prepare_int8_encoder(resnet, warm, None)
         prepared[device] = (resnet, qresnet, time.perf_counter() - t0)
         check_no_kernel(counters, "train_int8_step/prepare_" + device,
-                        results)
+                        results, k3=None)
     stats = relative_errors(
         dict(prepared["cuda"][0].named_buffers()),
         {n: b.to("cuda") for n, b in prepared["cpu"][0].named_buffers()})
@@ -2490,7 +2610,8 @@ def phase_train_int8_step(models, base, gen, results):
         card = train_step_record(encoder, decoder, imgs, captions, dl, "cuda",
                                  lr=1e-4, qresnet=qresnet)
         torch.cuda.synchronize()
-        check_no_kernel(counters, "train_int8_step/" + family, results)
+        check_no_kernel(counters, "train_int8_step/" + family, results,
+                        k3=None)
         cpu = train_step_record(encoder, decoder, imgs, captions, dl, "cpu",
                                 lr=1e-4, qresnet=qresnet)
         loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
@@ -2547,7 +2668,7 @@ def phase_eval_baseline_f32(trained, gen, results):
         losses.append(loss.cpu())
         preds.append(pred.cpu())
     eval_s = time.perf_counter() - t0
-    check_no_kernel(counters, "eval_baseline_f32", results)
+    check_no_kernel(counters, "eval_baseline_f32", results, k3=300)
     losses, preds = torch.cat(losses), torch.cat(preds)
     check(losses.shape == (n,) and preds.shape == (n, 20)
           and bool(losses.isfinite().all()), "baseline eval shapes",
@@ -3073,7 +3194,7 @@ def phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results):
         losses.append(loss.cpu())
         preds.append(pred.cpu())
     eval_s = time.perf_counter() - t0
-    check_no_kernel(counters, "eval_bert_f32", results)
+    check_no_kernel(counters, "eval_bert_f32", results, k3=300)
     losses, preds = torch.cat(losses), torch.cat(preds)
     check(losses.shape == (n,) and preds.shape == (n, 19)
           and bool(losses.isfinite().all()), "bert eval shapes",
@@ -3521,8 +3642,8 @@ def phase_mesh_gloo_shared(results, backend="gloo"):
             check(any(f[key] > limit for f in faults), "{} {} {}: TF32 or "
                   "the n_model-times gradient exceeds the limit".format(
                       phase, family, key), [f[key] for f in faults], limit)
-    check(all(o["train_launches"] == [0, 0] for o in outs),
-          phase + ": the train steps launched K1 or K2",
+    check(all(o["train_launches"] == [0, 0, 0] for o in outs),
+          phase + ": the train steps launched K1, K2 or K3",
           [o["train_launches"] for o in outs])
     check(all(o["k1_greedy"] > 0 and o["k1_beam"] > 0 for o in outs),
           phase + ": K1 launched on every rank")
@@ -3921,7 +4042,7 @@ def phase_device_image_cache(models, gen, results):
                 peak_memory_bytes=torch.cuda.max_memory_allocated())
             del buf
             torch.cuda.empty_cache()
-        check_no_kernel(counters, "device_image_cache", results)
+        check_no_kernel(counters, "device_image_cache", results, k3=None)
     coco = runs["coco_12gb"]
     check(coco["capacity_rows"] == COCO_TRAIN_IMAGES
           and coco["misses"] == CACHE_POOL
@@ -4013,7 +4134,7 @@ def phase_prefetch_async_ckpt(models, gen, results):
                 median_step_ms_after_save=median(ms[save_at + 1:]),
                 wait_at_end_ms=wait_ms)
         os.environ.pop("ICD_TPU_CKPT_ASYNC", None)
-        check_no_kernel(counters, "prefetch_async_ckpt", results)
+        check_no_kernel(counters, "prefetch_async_ckpt", results, k3=None)
     log("prefetch_async_ckpt", steps=TRAIN_BATCHES, batch=TRAIN_BATCH,
         save_after_step=save_at, **runs, card=card_line())
 
@@ -4046,7 +4167,7 @@ def phase_profile_train(models, gen, results):
             step, "cuda", torch.Generator("cuda").manual_seed(1)), enc, dec,
             optimizer, 0, {}, device="cuda")
         seconds = time.perf_counter() - t0
-        check_no_kernel(counters, "profile_train", results)
+        check_no_kernel(counters, "profile_train", results, k3=None)
     path = os.path.join(out_dir, "train_profiled", "trace.json")
     check(os.path.exists(path), "profile trace written", path)
     with open(path) as f:
@@ -4382,7 +4503,9 @@ def phase_captions_demo(models, base, bert_state, results):
     f32_products()
     counters = zero_counters()
     card = run("cuda")
-    check_no_kernel(counters, "captions_demo", results)
+    # Two float forwards an image (the caption's, then the features'),
+    # three images, three families.
+    check_no_kernel(counters, "captions_demo", results, k3=100 * 2 * 3 * 3)
     cpu = run("cpu")
     out = {}
     for family in families:
@@ -4651,8 +4774,9 @@ def phase_gen_captions_file(root, results):
         _, card = quiet(gen_captions.main, argv + ["--device", "cuda"])
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    k1, k2 = (c.launches for c in counters)
+    k1, k2, _ = (c.launches for c in counters)
     check(k1 >= 1 and k2 == 0, "gen_captions_file: K1, K2 launches", k1, k2)
+    check_k3(results, "gen_captions_file", 100)  # one image, one forward
     args, kw, (ctx, alpha) = seen[0]
     ref_ctx, ref_alpha = fused_attention_reference(*args, **kw)
     ctx_err = (ctx - ref_ctx).abs().max().item()
@@ -4703,7 +4827,8 @@ def phase_beam_eval_files(root, model, results):
             quiet(beam_eval.main, argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        k1, k2 = (c.launches for c in counters)
+        k1, k2, k3 = (c.launches for c in counters)
+        record_k3(results, "beam_eval_files/" + label, k3)
         with open(out) as f:
             got = json.load(f)
         check(len(got) == S13_VAL and all(
@@ -4763,7 +4888,7 @@ def phase_train_files(root, results):
         t0 = time.perf_counter()
         _, lines = quiet(train.main, argv)
         wall = time.perf_counter() - t0
-        check_no_kernel(counters, "train_files", results)
+        check_no_kernel(counters, "train_files", results, k3=None)
         times = [float(t) * 1e3 for t in re.findall(r"Time: ([0-9.]+)",
                                                     "\n".join(lines))]
         losses = unpack_checkpoint(load_checkpoint(
@@ -4819,7 +4944,7 @@ def phase_serving_e2e(models, results):
     counters = zero_counters()
     sweep, summary = bench_serving_e2e.run(base[0], base[1], blobs, "cuda",
                                            n_batches=8)
-    check_no_kernel(counters, "serving_e2e", results)
+    check_no_kernel(counters, "serving_e2e", results, k3=None)
     check(summary["e2e_captions_equal_resident"],
           "serving_e2e: end-to-end captions equal the resident batch's")
     check(all(v > 0 for v in (summary["host_images_per_s"],
@@ -4851,7 +4976,7 @@ def nccl4():
     check(torch.cuda.device_count() >= 4, "--nccl4 needs four cards",
           torch.cuda.device_count())
     results = {name: {"launches_by_path": {}}
-               for name in ("fused_attention", "fused_beam")}
+               for name in ("fused_attention", "fused_beam", "bn_epilogue")}
     phase_build()
     models = full_width_models()
     phase_mesh_nccl1(models, torch.Generator().manual_seed(7), results)
@@ -4879,15 +5004,16 @@ def main():
     results = {}
     phase_build()
     phase_k1(results)
+    phase_k3(results)
     phase_int8_conv()
     models = full_width_models()
-    phase_k2(phase_path_f32(models), results)
+    phase_k2(phase_path_f32(models, results), results)
     phase_profile(*phase_serve_bf16(models, results))
     fused = phase_serve_fused_bf16(models, results)
     phase_beam_eval(fused[0], results)
     phase_profile(*fused, phase="profile_fused",
                   table="profile_fused_beam.txt")
-    act_maxes = phase_int8_encoder(models)
+    act_maxes = phase_int8_encoder(models, results)
     phase_greedy(models, results)
     phase_serve_int8_greedy(models, act_maxes, results)
     phase_beam_eval(phase_serve_int8_beam(models, act_maxes, results),
@@ -4928,7 +5054,11 @@ def main():
               source="icd_tpu_torch/csrc/fused_beam.cu",
               replaces="icd_tpu/ops/fused_beam.py:99",
               library_ms=None, **results["fused_beam"])
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    # No single PyTorch call computes BN, ReLU and the residual add.
+    k3 = dict(name="bn_epilogue", route="cuda",
+              source="icd_tpu_torch/csrc/bn_epilogue.cu", replaces=None,
+              library_ms=None, **results["bn_epilogue"])
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

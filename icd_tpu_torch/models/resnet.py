@@ -5,6 +5,8 @@ convolution sees ``x.permute(0, 3, 1, 2)``: on a contiguous NHWC tensor
 that view is NCHW in ``channels_last`` memory, which cuDNN takes as it
 is, so the layout costs no copy. Convolutions and pooling are cuDNN /
 ATen ops, as the JAX package leaves them to XLA (no Pallas kernel).
+Eval-mode BN with its ReLU and residual add is one pass of K3 on the
+card (``bn_relu``, ``ops/bn_epilogue.py``), where XLA fuses them.
 
 Parameter names follow the JAX tree: ``stem.conv``, ``stem.bn.scale``,
 ``layers.<stage>.<block>.conv1`` ... ``downsample.bn.var``. Conv
@@ -20,6 +22,7 @@ back, as the JAX train step threads its new tree back
 """
 
 import math
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -27,12 +30,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.bn_epilogue import Terms, bn_epilogue
 from ..ops.quant import div
 
 RESNET101_DEPTHS = (3, 4, 23, 3)
 RESNET_WIDTHS = (64, 128, 256, 512)
 EXPANSION = 4
-BN_EPS = 1e-5
+BN_EPS = 1e-5  # every BN of the trunk (torch.nn.BatchNorm2d's default)
 BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
 
@@ -53,19 +57,49 @@ def conv2d(x, w, stride=1, padding=0):
     return _nhwc(F.conv2d(_nchw(x), w, stride=stride, padding=padding))
 
 
-def batch_norm(x, bn, compute_dtype=None):
-    """Eval-mode BatchNorm over NHWC channels (resnet.py:48, train=False).
+def bn_terms(bn, compute_dtype=None):
+    """Eval-mode BN's terms (mean, var, scale, bias, eps) (resnet.py:48,
+    train=False): ``(x - mean) * rsqrt(var + eps) * scale + bias``.
 
     Scale and bias follow ``compute_dtype``; the running statistics stay
-    at their stored dtype, so under bf16 the affine is computed in f32
-    and only the result is rounded to the activation dtype.
+    at their stored dtype, so under bf16 with f32 statistics the affine
+    is computed in f32 and only the result is rounded to the activation
+    dtype.
     """
     scale, bias = bn.scale, bn.bias
-    if compute_dtype is not None:
-        scale, bias = scale.to(compute_dtype), bias.to(compute_dtype)
-    inv = torch.rsqrt(bn.var + BN_EPS) * scale
-    y = (x - bn.mean) * inv + bias
-    return y.to(x.dtype)
+    if compute_dtype is not None and scale.dtype != compute_dtype:
+        scale = scale.to(compute_dtype)
+    if compute_dtype is not None and bias.dtype != compute_dtype:
+        bias = bias.to(compute_dtype)
+    return bn.mean, bn.var, scale, bias, BN_EPS
+
+
+_K3_TERMS = weakref.WeakKeyDictionary()  # BN module -> {dtype: Terms}
+
+
+def k3_terms(bn, compute_dtype=None):
+    """``bn_terms`` prepared for K3 (``ops.bn_epilogue.Terms``) once per
+    BN module and compute dtype, while they are the module's own tensors
+    where they were; terms that ``bn_terms`` casts afresh are prepared
+    at each call."""
+    prepared = _K3_TERMS.get(bn)
+    if prepared is None:
+        prepared = _K3_TERMS[bn] = {}
+    t = prepared.get(compute_dtype)
+    if t is None or not t.holds(bn.mean, bn.var, bn.scale, bn.bias):
+        t = prepared[compute_dtype] = Terms(*bn_terms(bn, compute_dtype))
+    return t
+
+
+def bn_relu(x, bn, compute_dtype=None, residual=None, shortcut=None):
+    """Eval-mode ``relu(bn(x) [+ residual])``, or with ``shortcut = (s,
+    bn')`` ``relu(bn(x) + bn'(s))``: one K3 pass on the card
+    (``ops.bn_epilogue``), the eager chain to the bit elsewhere."""
+    terms = k3_terms if x.is_cuda else bn_terms
+    if shortcut is not None:
+        s, sbn = shortcut
+        shortcut = (s, terms(sbn, compute_dtype))
+    return bn_epilogue(x, terms(bn, compute_dtype), residual, shortcut)
 
 
 def batch_norm_train(x, bn, compute_dtype=None, group=None):
@@ -114,14 +148,20 @@ def _mean_over_ranks(x, group):
     return x / dist.get_world_size(group)
 
 
-def _bn(x, bn, compute_dtype, stats, group=None):
-    """Eval-mode BN when ``stats`` is None; else train-mode BN (over the
-    data ``group``'s global batch), its new running statistics recorded
-    in ``stats`` under the module."""
+def _bn_relu(x, bn, compute_dtype, stats, group=None, residual=None,
+             shortcut=None):
+    """``bn_relu``'s forms in eval mode, when ``stats`` is None; else
+    with train-mode BN (over the data ``group``'s global batch), the new
+    running statistics recorded in ``stats`` under each module."""
     if stats is None:
-        return batch_norm(x, bn, compute_dtype)
+        return bn_relu(x, bn, compute_dtype, residual, shortcut)
     y, stats[bn] = batch_norm_train(x, bn, compute_dtype, group)
-    return y
+    if shortcut is not None:
+        s, sbn = shortcut
+        residual, stats[sbn] = batch_norm_train(s, sbn, compute_dtype, group)
+    if residual is not None:
+        y = y + residual
+    return y.relu()
 
 
 def merge_bn_stats(new_stats):
@@ -273,24 +313,33 @@ def _w(p, compute_dtype):
     return p if compute_dtype is None else p.to(compute_dtype)
 
 
+def _nhwc_memory(x):
+    """NHWC ``x`` with every stride a contiguous tensor has. cuDNN reads
+    the layout from the strides, a size-1 dimension's too (a numpy
+    ``img[None]`` has stride 0 there), and keeps channels_last from such
+    an input on: every activation of the trunk is then NHWC in memory, as
+    K3 takes them."""
+    _, h, w, c = x.shape
+    if x.stride() == (h * w * c, w * c, c, 1):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _bottleneck(block, x, compute_dtype, conv=conv2d, stats=None,
                 group=None):
     """1x1 -> 3x3(stride) -> 1x1 bottleneck with projection shortcut."""
-    out = _bn(conv(x, _w(block.conv1, compute_dtype)),
-              block.bn1, compute_dtype, stats, group).relu()
-    out = _bn(conv(out, _w(block.conv2, compute_dtype),
-                   stride=block.stride, padding=1),
-              block.bn2, compute_dtype, stats, group).relu()
-    out = _bn(conv(out, _w(block.conv3, compute_dtype)),
-              block.bn3, compute_dtype, stats, group)
-    if block.downsample is not None:
-        shortcut = _bn(
-            conv(x, _w(block.downsample.conv, compute_dtype),
-                 stride=block.stride),
-            block.downsample.bn, compute_dtype, stats, group)
-    else:
-        shortcut = x
-    return (out + shortcut).relu()
+    out = _bn_relu(conv(x, _w(block.conv1, compute_dtype)),
+                   block.bn1, compute_dtype, stats, group)
+    out = _bn_relu(conv(out, _w(block.conv2, compute_dtype),
+                        stride=block.stride, padding=1),
+                   block.bn2, compute_dtype, stats, group)
+    out = conv(out, _w(block.conv3, compute_dtype))
+    if block.downsample is None:
+        return _bn_relu(out, block.bn3, compute_dtype, stats, group,
+                        residual=x)
+    s = conv(x, _w(block.downsample.conv, compute_dtype), stride=block.stride)
+    return _bn_relu(out, block.bn3, compute_dtype, stats, group,
+                    shortcut=(s, block.downsample.bn))
 
 
 def resnet_forward(resnet, x, compute_dtype=None, conv=None, train=False,
@@ -316,9 +365,10 @@ def resnet_forward(resnet, x, compute_dtype=None, conv=None, train=False,
         x = x.to(resnet.stem.conv.dtype)
     else:
         x = x.to(compute_dtype)
+    x = _nhwc_memory(x)
     stats = {} if train else None
     out = conv(x, _w(resnet.stem.conv, compute_dtype), stride=2, padding=3)
-    out = _bn(out, resnet.stem.bn, compute_dtype, stats, group).relu()
+    out = _bn_relu(out, resnet.stem.bn, compute_dtype, stats, group)
     out = max_pool(out, window=3, stride=2, padding=1)
     for blocks in resnet.layers:
         for block in blocks:

@@ -12,6 +12,9 @@ gives one LSTM unit the job of counting steps and makes it the only
 input of the ``<end>`` logit, so captions end after a number of steps
 that depends on the image.
 
+``bn_epilogue_sites`` lists K3's launches in a trunk's forward, and
+``bn_epilogue_case`` makes one site's operands from a seed.
+
 ``codec_corpus`` is a seeded set of JPEGs that the port's encoder writes
 (each subsampling, progressive, restart markers, grey, odd sizes,
 640x480); ``CODEC_CORPUS_DIGEST`` is the ``pixel_digest`` of PIL's
@@ -87,6 +90,79 @@ def seeded_captions(generator, n, length, vocab, start_id, end_id,
         out[row, 1:1 + count] = words[row, :count]
         out[row, 1 + count] = end_id
     return out
+
+
+BN_EPILOGUE_SETUPS = ("bf16_keep", "bf16_cast", "f32")
+
+
+def bn_epilogue_sites(batch=64):
+    """K3's launches in one eval-mode forward of ResNet-101 at 224 x 224
+    images, in order: (NHWC shape, form), form 0 for relu(bn(x)), 1 with
+    an identity residual, 2 with the downsample's BN. Traced on the meta
+    device."""
+    from .models import resnet
+
+    sites = []
+
+    def recording(x, bn, compute_dtype=None, residual=None, shortcut=None):
+        form = 0 if residual is None and shortcut is None else (
+            1 if residual is not None else 2)
+        sites.append((tuple(x.shape), form))
+        return x
+
+    plain = resnet.bn_relu
+    resnet.bn_relu = recording
+    try:
+        with torch.device("meta"):
+            resnet.resnet_forward(resnet.ResNet(),
+                                  torch.empty(batch, 224, 224, 3))
+    finally:
+        resnet.bn_relu = plain
+    return sites
+
+
+def random_bn(c, generator, setup, device=None):
+    """(BN of ``c`` channels, compute_dtype) with random statistics, scale
+    and bias, stored as ``setup`` says: ``bf16_keep`` the bf16 serving
+    trunk (parameters bf16, statistics f32, ``cast_keep_bn_stats``),
+    ``bf16_cast`` a trunk cast whole to bf16, ``f32`` all f32."""
+    from .models.resnet import BatchNorm
+
+    bn = BatchNorm(c)
+    with torch.no_grad():
+        bn.mean.copy_(torch.randn(c, generator=generator))
+        bn.var.copy_(torch.rand(c, generator=generator) * 4 + 0.01)
+        bn.scale.copy_(1 + 0.5 * torch.randn(c, generator=generator))
+        bn.bias.copy_(0.5 * torch.randn(c, generator=generator))
+    bn = bn.requires_grad_(False).to(device)
+    if setup == "f32":
+        return bn, None
+    if setup == "bf16_cast":
+        return bn.to(torch.bfloat16), torch.bfloat16
+    for p in bn.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    return bn, torch.bfloat16
+
+
+def bn_epilogue_case(shape, form, generator, setup, device=None):
+    """K3's operands at one site: (x, bn, compute_dtype, residual,
+    shortcut) for ``models.resnet.bn_relu``, with ``shortcut`` = (s, bn')
+    in form 2; activations N(0, 4) in the setup's activation dtype."""
+    dtype = torch.float32 if setup == "f32" else torch.bfloat16
+
+    def act():
+        return (2 * torch.randn(shape, generator=generator)).to(
+            device=device, dtype=dtype)
+
+    c = shape[-1]
+    bn, compute_dtype = random_bn(c, generator, setup, device)
+    x = act()
+    residual = act() if form == 1 else None
+    shortcut = None
+    if form == 2:
+        s = act()
+        shortcut = (s, random_bn(c, generator, setup, device)[0])
+    return x, bn, compute_dtype, residual, shortcut
 
 
 def f32_products(tf32=False):

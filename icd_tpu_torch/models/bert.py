@@ -16,9 +16,12 @@ products, the embeddings and the LayerNorms stay f32.
 
 The JAX package pads lengths and word counts to buckets of 16 so that
 XLA compiles few programs (bert_jax.py:221-261); eager PyTorch compiles
-none, so ``TorchBert`` runs every batch at its own length. Padded keys
-change no valid row: their scores sit at -1e9, whose exponential is an
-exact 0 in f32.
+none, so ``TorchBert`` runs every batch at its own length, unless
+``TorchBert.capture`` has made CUDA graphs of the float forward: a batch
+whose rows and length bucket (``LENGTH_BUCKET``, the JAX package's 16)
+have a graph is padded to the bucket and issued as one replay instead
+of a launch for each of its ~330 operations. Padded keys change no valid
+row: their scores sit at -1e9, whose exponential is an exact 0 in f32.
 """
 
 import copy
@@ -31,6 +34,11 @@ from torch import nn
 
 from ..data.pipeline import to_device
 from ..ops.qlinear import qmatmul, quantize_linear
+from ..utils.profiling import annotate
+
+# The lengths a captured forward runs at are multiples of this (the JAX
+# package's bucket, bert_jax.py:221).
+LENGTH_BUCKET = 16
 
 # bert-base-uncased's geometry (its config.json).
 BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
@@ -171,11 +179,16 @@ def bert_encoder_forward(bert, input_ids, attention_mask):
 
 
 def bert_aligned_forward(bert, input_ids, attention_mask, seg, n_words):
-    """The forward, then each word's pieces summed (bert_jax.py:167):
-    ``seg`` (B, L) is the word index of each piece, -1 for pieces no word
-    takes (padding too), which go to a dump row that is cut off. Words
-    that take no piece stay zero. Returns (B, n_words, H)."""
-    hidden = bert_encoder_forward(bert, input_ids, attention_mask)
+    """The forward, then each word's pieces summed (``aligned_sum``)."""
+    return aligned_sum(bert_encoder_forward(bert, input_ids, attention_mask),
+                       seg, n_words)
+
+
+def aligned_sum(hidden, seg, n_words):
+    """(B, L, H) hidden states -> (B, n_words, H), each word's pieces
+    summed (bert_jax.py:167): ``seg`` (B, L) is the word index of each
+    piece, -1 for pieces no word takes (padding too), which go to a dump
+    row that is cut off. Words that take no piece stay zero."""
     b, length, h_dim = hidden.shape
     seg = seg.long()
     safe = torch.where(seg < 0, n_words, seg)
@@ -185,11 +198,25 @@ def bert_aligned_forward(bert, input_ids, attention_mask, seg, n_words):
     return out.view(b, n_words + 1, h_dim)[:, :n_words]
 
 
+def length_bucket(length):
+    """The captured length a batch of ``length`` pieces runs at."""
+    return -(-length // LENGTH_BUCKET) * LENGTH_BUCKET
+
+
+def pad_pieces(ids, mask, seg, length):
+    """(B, L) host arrays padded to ``length`` columns: ids 0 ([PAD]),
+    mask 0 and seg -1, which change no valid row and no word's sum."""
+    pad = ((0, 0), (0, length - ids.shape[1]))
+    return (np.pad(ids, pad), np.pad(mask, pad),
+            np.pad(seg, pad, constant_values=-1))
+
+
 class TorchBert:
     """The BERT forward on ``device`` (``JaxBert``, bert_jax.py:190):
     ``aligned`` gives the piece -> word sums as a tensor on ``device``,
     ready for the train step. With ``int8`` the Linears are W8A8
-    (``quantize_bert``)."""
+    (``quantize_bert``). After ``capture`` a batch whose rows and length
+    bucket have a CUDA graph replays it."""
 
     def __init__(self, bert, device=None, int8=False):
         bert = bert.eval().requires_grad_(False)
@@ -197,14 +224,66 @@ class TorchBert:
             bert = quantize_bert(bert)
         self.device = torch.device(device or "cpu")
         self.bert = bert.to(self.device)
+        self.int8 = int8
+        # (rows, padded length) -> (ids, mask, hidden, graph): the
+        # graph's input buffers, its output and the graph.
+        self._graphs = {}
+
+    @torch.no_grad()
+    def capture(self, rows, max_length=None):
+        """CUDA graphs of the float forward of ``rows`` captions at every
+        length bucket up to ``max_length`` pieces (the model's positions
+        by default), captured on a side stream into one memory pool.
+        They may share it because one thread replays them on one
+        stream, and each replay's output is summed into words before the
+        next replay is issued. Nothing on the CPU or with W8A8. Returns
+        how many graphs are held."""
+        if self.device.type != "cuda" or self.int8:
+            return 0
+        top = min(max_length or self.bert.pos.num_embeddings,
+                  self.bert.pos.num_embeddings)
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for length in range(LENGTH_BUCKET, length_bucket(top) + 1,
+                                LENGTH_BUCKET):
+                if (rows, length) in self._graphs:
+                    continue
+                ids = torch.zeros((rows, length), dtype=torch.int64,
+                                  device=self.device)
+                mask = torch.ones_like(ids)
+                if not self._graphs:  # cuBLAS's state for this stream
+                    bert_encoder_forward(self.bert, ids, mask)
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    hidden = bert_encoder_forward(self.bert, ids, mask)
+                finally:
+                    graph.capture_end()
+                self._graphs[(rows, length)] = (ids, mask, hidden, graph)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        return len(self._graphs)
 
     @torch.no_grad()
     def aligned(self, ids, mask, seg, n_words):
         """(B, L) ids, mask and seg (numpy) -> (B, n_words, H) tensor on
-        the device."""
-        return bert_aligned_forward(
-            self.bert, self._tensor(ids), self._tensor(mask),
-            self._tensor(seg), int(n_words))
+        the device; under a profiler the span ``bert_forward``."""
+        with annotate("bert_forward"):
+            captured = self._graphs.get((len(ids),
+                                         length_bucket(ids.shape[1])))
+            if captured is None:
+                return bert_aligned_forward(
+                    self.bert, self._tensor(ids), self._tensor(mask),
+                    self._tensor(seg), int(n_words))
+            static_ids, static_mask, hidden, graph = captured
+            ids, mask, seg = pad_pieces(ids, mask, seg, hidden.shape[1])
+            for static, a in ((static_ids, ids), (static_mask, mask)):
+                static.copy_(torch.from_numpy(a.astype(np.int64))
+                             .pin_memory(), non_blocking=True)
+            graph.replay()
+            return aligned_sum(hidden, self._tensor(seg), int(n_words))
 
     def _tensor(self, a):
         return to_device(np.asarray(a, np.int64), self.device)

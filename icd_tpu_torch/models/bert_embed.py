@@ -22,8 +22,16 @@ a host path (a torch forward on the CPU and a numpy alignment) for its
 batch-1 eval parity under XLA's static shapes; eager PyTorch runs every
 batch at its own length and padded keys change no valid row
 (``models/bert.py``), so the port needs only this one path, in training
-and in eval. The tokenizer is the port's own (``bert_tokenize.py``) and
-the weights come from a ``save_pretrained`` directory (``bert_load.py``).
+and in eval. ``TorchBert.capture`` makes CUDA graphs of the forward for
+a batch size, which the batches of that size then replay. The
+tokenizer is the port's own (``bert_tokenize.py``) and the weights come
+from a ``save_pretrained`` directory (``bert_load.py``).
+
+Under a profiler the host string work and the padded arrays are a span
+``bert_tokenize`` and the forward (``TorchBert.aligned``) a span
+``bert_forward``, on the calling thread; ``counts`` keeps how many
+captions were embedded, how many of them the caption cache held, and
+their pieces, padded (rows x the longest) and their own.
 """
 
 import os
@@ -31,6 +39,7 @@ import os
 import numpy as np
 
 from ..device import resolve_device
+from ..utils.profiling import annotate
 from .bert import TorchBert
 
 
@@ -95,6 +104,8 @@ class BertCaptionEmbedder:
         # caption space, so it saturates within the first few hundred
         # batches.
         self._word_memo = {}
+        self.counts = dict.fromkeys(
+            ("captions", "cache_hits", "pieces_padded", "pieces_own"), 0)
         if model is None or tokenizer is None:
             model, tokenizer = _load_default_bert()
         self.tokenizer = tokenizer
@@ -163,6 +174,7 @@ class BertCaptionEmbedder:
         """Memoized host string work: caption key -> (piece ids, seg)
         (bert_embed.py:250)."""
         missing = [k for k in dict.fromkeys(keys) if k not in self._cache]
+        self.counts["cache_hits"] += len(keys) - len(missing)
         if missing:
             fresh = {}
             for k in missing:
@@ -192,15 +204,19 @@ class BertCaptionEmbedder:
         ``keys``: (B, L) piece ids, attention mask and word segments
         (int32 numpy, L the longest row's pieces) and the word count
         T + 1."""
-        rows = self._tokenize_rows(keys)
-        max_len = max(len(ids) for ids, _ in rows)
-        ids = np.zeros((len(rows), max_len), np.int32)
-        attn = np.zeros((len(rows), max_len), np.int32)
-        seg = np.full((len(rows), max_len), -1, np.int32)
-        for i, (row_ids, row_seg) in enumerate(rows):
-            ids[i, : len(row_ids)] = row_ids
-            attn[i, : len(row_ids)] = 1
-            seg[i, : len(row_ids)] = row_seg
+        with annotate("bert_tokenize"):
+            rows = self._tokenize_rows(keys)
+            max_len = max(len(ids) for ids, _ in rows)
+            ids = np.zeros((len(rows), max_len), np.int32)
+            attn = np.zeros((len(rows), max_len), np.int32)
+            seg = np.full((len(rows), max_len), -1, np.int32)
+            for i, (row_ids, row_seg) in enumerate(rows):
+                ids[i, : len(row_ids)] = row_ids
+                attn[i, : len(row_ids)] = 1
+                seg[i, : len(row_ids)] = row_seg
+        self.counts["captions"] += len(rows)
+        self.counts["pieces_padded"] += ids.size
+        self.counts["pieces_own"] += int(attn.sum())
         return ids, attn, seg, captions.shape[1] + 1  # + [CLS] row
 
 

@@ -28,7 +28,9 @@ With ``--use_bert`` the decoder reads BERT's caption embeddings
 (``models/bert_embed.py``) instead of its table, which stays frozen.
 Both make them on the run's device (``ICD_TPU_BERT_INT8=1``: the W8A8
 BERT in training): training on the thread that prepares the next batch,
-from the padded rows; eval from each caption without its padding.
+from the padded rows, replaying the CUDA graphs captured for the rank's
+batch size (``TorchBert.capture``); eval from each caption
+without its padding.
 """
 
 import os
@@ -49,7 +51,7 @@ from ..models.encoder import (encoder_attention_forward,
                               encoder_attention_forward_int8,
                               init_encoder_attention)
 from ..models.resnet import merge_bn_stats
-from ..parallel.mesh import batch_layout, shard_batch
+from ..parallel.mesh import batch_layout, batch_rows, shard_batch
 from ..params import decoder_from_jax, encoder_from_jax
 from ..utils.profiling import annotate
 from ..vocabulary import END_TOKEN, PAD_TOKEN, START_TOKEN
@@ -197,15 +199,16 @@ def batch_step(step, device, generator=None, mesh=None):
 
 
 def with_bert(embedder, mesh=None):
-    """``train_epochs``' ``prepare``: each batch gets its captions' BERT
-    embeddings, of the padded rows as the reference trains
-    (attention.py:242-247); on a ``mesh``, of this rank's rows only."""
+    """``train_epochs``' ``prepare``: a copy of each batch with its
+    captions' BERT embeddings, of the padded rows as the reference trains
+    (attention.py:242-247); on a ``mesh``, of this rank's rows only. The
+    loader's dict is left as it was, so a caller that keeps or cycles its
+    batches keeps no device tensor a batch."""
     def prepare(batch):
         captions = batch["captions"]
         if mesh is not None:
             captions = shard_batch(captions, mesh)
-        batch["embeddings"] = embedder(captions)
-        return batch
+        return dict(batch, embeddings=embedder(captions))
     return prepare
 
 
@@ -234,9 +237,14 @@ def train(args, device=None, mesh=None):
                            compute_dtype, qresnet, mesh)
     prepare = None
     if args.use_bert:
-        prepare = with_bert(BertCaptionEmbedder(
+        embedder = BertCaptionEmbedder(
             vocab, device=device,
-            int8=bool(os.environ.get("ICD_TPU_BERT_INT8"))), mesh)
+            int8=bool(os.environ.get("ICD_TPU_BERT_INT8")))
+        rows = range(args.batch_size)  # with_bert embeds the rank's rows
+        if mesh is not None:
+            rows = rows[batch_rows(mesh, args.batch_size)]
+        embedder.bert.capture(len(rows))
+        prepare = with_bert(embedder, mesh)
     generator = torch.Generator(device).manual_seed(1)
     train_epochs(args, loader, batch_step(step, device, generator, mesh),
                  encoder, decoder, optimizer, start_epoch, metrics, prepare,

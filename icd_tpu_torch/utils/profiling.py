@@ -2,9 +2,11 @@
 
 ``annotate(name)`` is a named span (``torch.profiler.record_function``)
 whenever a ``torch.profiler`` is recording in the process, whoever
-started it; otherwise it is one shared context that does nothing. The
-spans are on the dispatching thread, on the clock of the profiler's
-device trace:
+started it and on whichever thread; otherwise it is one shared context
+that does nothing. A profiler records another thread's spans only when
+it profiles every thread (``profile_all_threads``); one that profiles
+its own thread alone drops them. The spans are on the dispatching
+thread, on the clock of the profiler's device trace:
 
 - serving: ``serve_load``, ``serve_fetch``, ``serve_detok``
   (``beam_eval.caption_images``), ``serve_upload`` (the captioners'
@@ -16,13 +18,18 @@ device trace:
   ``checkpoint`` (``training/common.py``) and inside a step
   ``train_trunk``, ``train_decoder``, ``train_backward``,
   ``train_clip``, ``train_adam``, ``train_bn`` (both families'
-  ``make_train_step``).
+  ``make_train_step``);
+- BERT's caption embeddings, on the thread that calls the embedder (in
+  training the one that stages the next batch): ``bert_tokenize`` (the
+  host string work and the padded arrays,
+  ``BertCaptionEmbedder.piece_arrays``) and ``bert_forward`` (the ids'
+  upload, the forward and the piece -> word sum, ``TorchBert.aligned``).
 
 ``ICD_TPU_PROFILE=/path/to/dir`` makes ``maybe_profile`` record such a
-trace, with the card's kernels and copies when it runs on one, and
-write it as a Chrome trace under ``dir/<name>/``: each training run
-(``train_<model_name>``) and each ``beam_eval`` run. Unset, it does
-nothing.
+trace of every thread (the staging thread's BERT spans too), with the
+card's kernels and copies when it runs on one, and write it as a Chrome
+trace under ``dir/<name>/``: each training run (``train_<model_name>``)
+and each ``beam_eval`` run. Unset, it does nothing.
 """
 
 import contextlib
@@ -46,7 +53,10 @@ def maybe_profile(name="trace"):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     out_dir = os.path.join(target, name)
     os.makedirs(out_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=every_thread) as prof:
         yield
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
@@ -55,7 +65,10 @@ def maybe_profile(name="trace"):
 
 def annotate(name):
     """A span ``name`` in the trace while a profiler records, else the
-    shared no-op context."""
-    if torch.autograd._profiler_enabled():
+    shared no-op context. ``_profiler_enabled`` is this thread's state;
+    ``_is_profiler_enabled`` is set by every profiler the process opens,
+    so another thread's spans (BERT's producer) are seen too."""
+    if (torch.autograd._profiler_enabled()
+            or torch.autograd.profiler._is_profiler_enabled):
         return torch.profiler.record_function(name)
     return _OFF

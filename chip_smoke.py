@@ -20,9 +20,10 @@ Phases, one line of output each:
 
 1. build       compile every kernel from csrc/ (one nvcc per source, all
                at once) and print the build seconds; then k1_ptxas,
-               k2_ptxas and k3_ptxas, registers and spill bytes of each
-               bf16 kernel entry of K1 (its gate and attention kernels),
-               of K2 and of K3, which must show no spills;
+               k2_ptxas, k3_ptxas and k4_ptxas, registers and spill
+               bytes of each bf16 kernel entry of K1 (its gate and
+               attention kernels), of K2 and of K3, and of every entry
+               of K4, which must show no spills;
 2. k1          K1 (fused attention) against its plain PyTorch version, at
                a ragged shape and at the serving shapes: 64 images x 5
                beams, P=196, D=2048,
@@ -56,6 +57,19 @@ Phases, one line of output each:
                calibration's float pass, the f32 validation and demo
                paths, gen_captions_file), none on the int8 trunk and in
                the train steps; the kernels line records each reading;
+   k4          K4 (the static-int8 trunk's epilogue: dequant affine,
+               residual, ReLU, requantize in one pass) equal to its
+               plain version, the eager chain, at every distinct site of
+               ResNet-101's int8 trunk at batch 64 (the last block
+               writing bf16); then one forward's 100 launches through
+               prepared terms, timed as K3 is beside its bound and the
+               plain version's time, and the host's median time to issue
+               a launch. Later phases read K4's counter too: 100 a
+               forward on the int8 greedy and int8 beam paths, 300 on
+               beam_eval_int8 (3 batches), none on the float serving
+               paths and in the int8 calibration; int8_encoder holds a
+               whole int8 forward through K4 equal to the eager chain's
+               (bf16 and f32 output) and times the encoder both ways;
    int8_conv   ops.quant.conv2d_int8 (im2col + torch._int_mm) on the card
                at every distinct ResNet-101 convolution site at batch 2
                (the 7x7/2 stem with K padded, the 1x1 and 3x3 sites, the
@@ -431,9 +445,12 @@ def kernel_counters():
 
 
 def zero_counters():
-    """K1's, K2's and K3's wrappers, their launch counts set to 0."""
+    """K1's, K2's and K3's wrappers, their launch counts set to 0, and
+    K4's count too (read by ``check_k4``)."""
+    from icd_tpu_torch.ops.int8_epilogue import int8_epilogue
+
     counters = kernel_counters()
-    for c in counters:
+    for c in counters + [int8_epilogue]:
         c.launches = 0
     return counters
 
@@ -459,19 +476,24 @@ def phase_build():
                ("k1_gate", "k1_attention"))
     ptxas_line("k2_ptxas", reports["fused_beam"][1], ("fused_beam",))
     ptxas_line("k3_ptxas", reports["bn_epilogue"][1], ("bn_epilogue",))
+    ptxas_line("k4_ptxas", reports["int8_epilogue"][1], ("int8_epilogue",),
+               keep=lambda name: "int8_epilogue" in name)
 
 
-def ptxas_line(phase, report, kernels):
+def ptxas_line(phase, report, kernels, keep=None):
     """ptxas's report for the bf16 entry functions whose names hold one
-    of ``kernels``: registers and spill bytes of each; fails on any
-    spill."""
+    of ``kernels`` (or those ``keep(name)`` takes): registers and spill
+    bytes of each; fails on any spill."""
     entries = []
     for line in report.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-            keep = ("nv_bfloat16" in name
-                    and any(k in name for k in kernels))
-            entries.append(dict(entry=name) if keep else None)
+            if keep is None:
+                taken = ("nv_bfloat16" in name
+                         and any(k in name for k in kernels))
+            else:
+                taken = keep(name)
+            entries.append(dict(entry=name) if taken else None)
         elif entries and entries[-1] is not None:
             spills = re.findall(r"(\d+) bytes spill", line)
             regs = re.search(r"Used (\d+) registers", line)
@@ -623,6 +645,71 @@ def phase_k3(results):
         host_us_per_launch=host_us)
 
 
+def phase_k4(results):
+    """K4 against the eager chain at every distinct site of ResNet-101's
+    int8 trunk at batch 64 (the last block writing bf16, as served),
+    then one forward's 100 launches through prepared terms timed beside
+    their bound and the plain chain, and the host's time to issue a
+    launch."""
+    import torch
+
+    from icd_tpu_torch.k1_bench import time_ms
+    from icd_tpu_torch.ops.int8_epilogue import (Terms, bound_ms,
+                                                 int8_epilogue,
+                                                 int8_epilogue_reference)
+    from icd_tpu_torch.testing import int8_epilogue_case, int8_epilogue_sites
+
+    results["int8_epilogue"] = dict(launches_by_path={})
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(4)
+    sites = int8_epilogue_sites(IMAGES)
+    cases, plain = {}, {}
+    with torch.inference_mode():
+        for site in sites:
+            if site in cases:
+                continue
+            acc, terms, other = int8_epilogue_case(*site, gen, "cuda")
+            cases[site] = (acc, Terms(*terms), other, bf16)
+            plain[site] = (acc, terms, other, bf16)
+            check(torch.equal(int8_epilogue(*cases[site]),
+                              int8_epilogue_reference(*plain[site])),
+                  "K4 equals the eager chain", site)
+
+        def kernel():
+            for site in sites:
+                int8_epilogue(*cases[site])
+
+        def reference():
+            for site in sites:
+                int8_epilogue_reference(*plain[site])
+
+        zero_counters()
+        kernel()
+        torch.cuda.synchronize()
+        check(int8_epilogue.launches == len(sites) == 100,
+              "K4 launches a forward", int8_epilogue.launches)
+        record_k4(results, "k4_forward_bf16", int8_epilogue.launches)
+        host = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kernel()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        host_us = sorted(host)[len(host) // 2] / len(sites) * 1e6
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+        kernel_ms = time_ms(kernel, flush=flush, settle=True)
+        plain_ms = time_ms(reference, flush=flush, settle=True)
+    bound = bound_ms(sites)
+    results["int8_epilogue"].update(
+        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+        host_us_per_launch=host_us)
+    log("k4", batch=IMAGES, sites=len(sites), distinct_sites=len(cases),
+        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes", share_of_bound=bound / kernel_ms,
+        host_us_per_launch=host_us)
+
+
 def k1_one_row(args32, flush):
     """K1 at greedy decoding's shape, one row per image for 64 images, in
     f32 and bf16 against its plain version (the tolerances of phase_k1),
@@ -768,6 +855,21 @@ def plain_attention():
     finally:
         attention.fused_attention = kernel
         greedy.fused_attention = kernel
+
+
+@contextlib.contextmanager
+def plain_int8_epilogue():
+    """The int8 trunk's epilogues through K4's plain version, the eager
+    chain, for the comparison runs."""
+    import icd_tpu_torch.models.resnet_int8 as resnet_int8
+    from icd_tpu_torch.ops.int8_epilogue import int8_epilogue_reference
+
+    kernel = resnet_int8.int8_epilogue
+    resnet_int8.int8_epilogue = int8_epilogue_reference
+    try:
+        yield
+    finally:
+        resnet_int8.int8_epilogue = kernel
 
 
 def phase_path_f32(models, results):
@@ -1162,8 +1264,9 @@ def phase_beam_eval(captioner, results, phase="beam_eval"):
     check([r["image_id"] for r in rows] == img_ids, phase + " image ids")
     check(all(isinstance(r["caption"], str) for r in rows),
           phase + " captions")
-    # The float trunk launches K3 100 times a batch; the int8 one never.
-    check_k3(results, phase, 0 if captioner.qresnet is not None else 300)
+    # The float trunk launches K3 100 times a batch, the int8 one K4.
+    int8 = captioner.qresnet is not None
+    check_k3(results, phase, 0 if int8 else 300, k4=300 if int8 else 0)
     if captioner.beam_fn is beam_search_fused:
         check(k2 == 3 and k1 == 0, "K2 launches for 3 batches", k2, k1)
         results["fused_beam"]["launches_by_path"][phase] = k2
@@ -1367,9 +1470,22 @@ def phase_int8_encoder(models, results):
                               device="cuda")
     gq, gf = int8.encode(imgs).float(), flt.encode(imgs).float()
     check(bool(gq.isfinite().all()), "finite int8 grid")
+    # K4 against the eager chain over a whole int8 forward, bf16 and f32.
+    with torch.inference_mode():
+        k4_grids = [encoder_attention_forward_int8(qresnet, imgs, dt)
+                    for dt in (bf16, torch.float32)]
+        with plain_int8_epilogue():
+            eager_grids = [encoder_attention_forward_int8(qresnet, imgs, dt)
+                           for dt in (bf16, torch.float32)]
+    check(all(torch.equal(a, b) for a, b in zip(k4_grids, eager_grids)),
+          "int8 forward through K4 equals the eager chain")
+    del k4_grids, eager_grids
     rel_l2 = ((gq - gf).norm() / gf.norm()).item()
     blocks = int8_block_errors(encoder.resnet, qresnet, imgs2.cuda())
     ms, peak = {}, {}
+    with plain_int8_epilogue():
+        ms["int8_eager_epilogue"] = time_ms(lambda: int8.encode(imgs),
+                                            iters=10, warmup=2)
     for name, cap in (("int8", int8), ("float", flt)):
         ms[name] = time_ms(lambda: cap.encode(imgs), iters=10, warmup=2)
         torch.cuda.synchronize()
@@ -1401,6 +1517,8 @@ def phase_int8_encoder(models, results):
         last_site_step=step, rel_l2_vs_float_bf16=rel_l2,
         rel_l2_f32_by_block=blocks,
         int8_encoder_ms=ms["int8"], float_encoder_ms=ms["float"],
+        int8_encoder_eager_epilogue_ms=ms["int8_eager_epilogue"],
+        int8_forward_k4_equals_eager=True,
         int8_encoder_peak_bytes=peak["int8"],
         float_encoder_peak_bytes=peak["float"],
         int8_device_ms_by_group=groups,
@@ -1523,7 +1641,7 @@ def phase_serve_int8_greedy(models, act_maxes, results):
         out, enc_ms, dec_ms, (k1, _, _), peak = timed_serve(cap, imgs)
         steps = greedy_steps(out[0], max_len)
         name = "int8_decoder" if int8_decoder else "float_decoder"
-        check_k3(results, "serve_int8_greedy_bf16/" + name, 0)
+        check_k3(results, "serve_int8_greedy_bf16/" + name, 0, k4=100)
         check(k1 > 0 and k1 == steps, name + " K1 launches vs steps", k1,
               steps)
         finished = check_greedy(out, IMAGES, max_len, name)
@@ -1581,7 +1699,7 @@ def phase_serve_int8_beam(models, act_maxes, results):
                                   device="cuda", beam_fn=beam_fn,
                                   act_maxes=act_maxes)
         out, enc_ms, beam_ms, (k1, k2, _), peak = timed_serve(cap, imgs)
-        check_k3(results, "serve_int8_beam_bf16/" + name, 0)
+        check_k3(results, "serve_int8_beam_bf16/" + name, 0, k4=100)
         if name == "fused":
             check(k2 == 1 and k1 == 0, "int8 fused launches", k1, k2)
             results["fused_beam"]["launches_by_path"][
@@ -1629,16 +1747,18 @@ def baseline_models(models):
     return Encoder(models[0].resnet, embed), decoder
 
 
-def check_no_kernel(counters, what, results, k3=0):
+def check_no_kernel(counters, what, results, k3=0, k4=None):
     """A path that decodes without K1 and K2: neither launched, and K3
     ``k3`` times (100 a forward of the float trunk in eval mode, none in
-    train mode or on the int8 trunk; None: read, not checked). Records
-    the three counts."""
+    train mode or on the int8 trunk; None: read, not checked) and K4
+    ``k4`` times (100 a forward of the int8 trunk; read, not checked, by
+    default). Records the four counts."""
     launches = [c.launches for c in counters]
     check(launches[:2] == [0, 0], what + ": K1, K2 launched", launches)
     check(k3 is None or launches[2] == k3, what + ": K3 launches",
           launches[2], k3)
     record_k3(results, what, launches[2])
+    check_k4(results, what, k4)
     results["fused_attention"]["launches_by_path"][what] = launches[0]
     results["fused_beam"]["launches_by_path"][what] = launches[1]
 
@@ -1647,15 +1767,32 @@ def record_k3(results, what, launches):
     results["bn_epilogue"]["launches_by_path"][what] = launches
 
 
-def check_k3(results, what, expected):
+def record_k4(results, what, launches):
+    results["int8_epilogue"]["launches_by_path"][what] = launches
+
+
+def check_k4(results, what, expected):
+    """K4's launches since the counters were set to 0, against
+    ``expected`` (100 a forward of the int8 trunk, 0 on the float one;
+    None: read, not checked); recorded under ``what``."""
+    from icd_tpu_torch.ops.int8_epilogue import int8_epilogue
+
+    check(expected is None or int8_epilogue.launches == expected,
+          what + ": K4 launches", int8_epilogue.launches, expected)
+    record_k4(results, what, int8_epilogue.launches)
+
+
+def check_k3(results, what, expected, k4=0):
     """K3's launches since the counters were set to 0, against
     ``expected`` (100 a forward of the float trunk in eval mode, 0 on
-    the int8 trunk); recorded under ``what``."""
+    the int8 trunk), and K4's against ``k4`` (100 a forward of the int8
+    trunk, 0 on the float one); recorded under ``what``."""
     from icd_tpu_torch.ops.bn_epilogue import bn_epilogue
 
     check(bn_epilogue.launches == expected, what + ": K3 launches",
           bn_epilogue.launches, expected)
     record_k3(results, what, bn_epilogue.launches)
+    check_k4(results, what, k4)
 
 
 def phase_baseline_f32(base, results):
@@ -4976,7 +5113,8 @@ def nccl4():
     check(torch.cuda.device_count() >= 4, "--nccl4 needs four cards",
           torch.cuda.device_count())
     results = {name: {"launches_by_path": {}}
-               for name in ("fused_attention", "fused_beam", "bn_epilogue")}
+               for name in ("fused_attention", "fused_beam", "bn_epilogue",
+                            "int8_epilogue")}
     phase_build()
     models = full_width_models()
     phase_mesh_nccl1(models, torch.Generator().manual_seed(7), results)
@@ -5005,6 +5143,7 @@ def main():
     phase_build()
     phase_k1(results)
     phase_k3(results)
+    phase_k4(results)
     phase_int8_conv()
     models = full_width_models()
     phase_k2(phase_path_f32(models, results), results)
@@ -5058,7 +5197,11 @@ def main():
     k3 = dict(name="bn_epilogue", route="cuda",
               source="icd_tpu_torch/csrc/bn_epilogue.cu", replaces=None,
               library_ms=None, **results["bn_epilogue"])
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    # No single PyTorch call computes the int8 epilogue.
+    k4 = dict(name="int8_epilogue", route="cuda",
+              source="icd_tpu_torch/csrc/int8_epilogue.cu", replaces=None,
+              library_ms=None, **results["int8_epilogue"])
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-KERNELS = ("fused_attention", "fused_beam", "bn_epilogue")
+KERNELS = ("fused_attention", "fused_beam", "bn_epilogue", "int8_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,15 +12,16 @@
    exactly as the JAX package does, so the same float weights and
    ``act_maxes`` give the same tree, bit for bit.
 3. **Serve** (``resnet_int8_forward``): int8 convolutions
-   (``ops.quant.conv2d_int8``) with an affine -> relu -> requantize
-   chain between them.
+   (``ops.quant.conv2d_int8``) with an affine -> (residual add) -> relu
+   -> requantize chain between them, one pass of kernel K4 on the card
+   (``ops.int8_epilogue``), the eager chain to the bit elsewhere.
 
 The tree is a dict of tensors shaped as the JAX tree: ``wq`` HWIO int8
 (stored column-major for cuBLASLt, ``ops.quant.gemm_layout``), ``scale``
 and ``bias`` (Cout,) f32, ``inv_in`` a 0-d f32 tensor. Every value
 before the last cast is an integer or the result of one IEEE f32
 operation taken in the JAX package's order (``acc * scale + bias`` as
-two operations, ``_requant`` multiplies by ``inv_in``, ``1 / inv_in`` in
+two operations, ``requant`` multiplies by ``inv_in``, ``1 / inv_in`` in
 f32, rounding half to even), so the forward equals the JAX package's
 bit for bit. Calibration does not: the float convolutions differ in
 their last bits between XLA and cuDNN or MKL.
@@ -28,8 +29,10 @@ their last bits between XLA and cuDNN or MKL.
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.image import normalize_imagenet
+from ..ops.int8_epilogue import Terms, dequant, int8_epilogue, requant
 from ..ops.quant import conv2d_int8, gemm_layout
 from .resnet import BN_EPS, conv2d, max_pool, resnet_forward
 
@@ -159,21 +162,15 @@ def tree_to(tree, device):
 # Serving forward
 # ---------------------------------------------------------------------------
 
-def _requant(x, inv_in):
-    """float -> symmetric s8 with the site's static scale."""
-    return torch.clamp(torch.round(x.float() * inv_in), -127,
-                       127).to(torch.int8)
-
-
 def _conv_affine(xi, site, stride=1, padding=0):
     """s8 input -> int8 conv (int32 sums) -> folded BN affine, f32 out."""
     acc = conv2d_int8(xi, site["wq"], stride=stride, padding=padding)
-    return acc.float() * site["scale"] + site["bias"]
+    return dequant(acc, site["scale"], site["bias"])
 
 
 def _qconv(x, site, stride=1, padding=0):
     """quantize(x) -> int8 conv -> folded BN affine, f32 out."""
-    return _conv_affine(_requant(x, site["inv_in"]), site,
+    return _conv_affine(requant(x, site["inv_in"]), site,
                         stride=stride, padding=padding)
 
 
@@ -182,8 +179,8 @@ def _stem_s2d(x, site):
     (resnet_int8.py:187): 2x2 pixel blocks become channels (3 -> 12) and
     the kernel, zero-padded to 8x8 at the top and left, is regrouped the
     same way into a (4, 4, 12, 64) stride-1 conv with padding (2, 1). The
-    same 147 taps plus zero taps: the same int32 sums."""
-    xi = _requant(x, site["inv_in"])  # (B, H, W, 3) s8
+    same 147 taps plus zero taps: the same int32 sums, returned."""
+    xi = requant(x, site["inv_in"])  # (B, H, W, 3) s8
     b, hh, ww, c = xi.shape
     x2 = xi.reshape(b, hh // 2, 2, ww // 2, 2, c)
     x2 = x2.permute(0, 1, 3, 2, 4, 5).reshape(b, hh // 2, ww // 2, 4 * c)
@@ -191,8 +188,40 @@ def _stem_s2d(x, site):
     kh, kw, _, co = w8.shape
     w4 = w8.reshape(kh // 2, 2, kw // 2, 2, c, co)
     w4 = w4.permute(0, 2, 1, 3, 4, 5).reshape(kh // 2, kw // 2, 4 * c, co)
-    acc = conv2d_int8(x2, w4, stride=1, padding=((2, 1), (2, 1)))
-    return acc.float() * site["scale"] + site["bias"]
+    return conv2d_int8(x2, w4, stride=1, padding=((2, 1), (2, 1)))
+
+
+def epilogue_terms(site, inv_next=None, in_inv=None, downsample=None):
+    """A site's epilogue terms (``ops.int8_epilogue``): its scale and
+    bias, the next site's ``inv_next`` (None: float output), and the
+    identity shortcut's ``in_inv`` or the ``downsample`` site's scale
+    and bias."""
+    ds = downsample or {}
+    return (site["scale"], site["bias"], inv_next, in_inv, ds.get("scale"),
+            ds.get("bias"))
+
+
+_K4_TERMS = WeakIdKeyDictionary()  # a site's scale tensor -> its Terms
+
+
+def k4_terms(site, inv_next=None, in_inv=None, downsample=None):
+    """``epilogue_terms`` prepared for K4 (``ops.int8_epilogue.Terms``)
+    once per site, kept outside the tree, while they are the tensors
+    they were."""
+    args = epilogue_terms(site, inv_next, in_inv, downsample)
+    t = _K4_TERMS.get(site["scale"])
+    if t is None or not t.holds(*args):
+        t = _K4_TERMS[site["scale"]] = Terms(*args)
+    return t
+
+
+def _epilogue(acc, site, inv_next=None, in_inv=None, downsample=None,
+              other=None, out_dtype=None):
+    """One int8 convolution's epilogue (``ops.int8_epilogue``): K4 with
+    the site's prepared terms on the card, the eager chain elsewhere."""
+    terms = k4_terms if acc.is_cuda else epilogue_terms
+    return int8_epilogue(acc, terms(site, inv_next, in_inv, downsample),
+                         other, out_dtype)
 
 
 @torch.no_grad()
@@ -204,19 +233,23 @@ def resnet_int8_forward(qparams, x, out_dtype=torch.bfloat16,
     residual="int8" (default) keeps the trunk int8-resident: each block
     output is quantized once with the next block's conv1 input scale,
     and the shortcut dequantizes from that same s8 tensor; the quantize
-    commutes with the stem max-pool, which therefore runs on s8.
+    commutes with the stem max-pool, which therefore runs on s8. Every
+    convolution's epilogue (affine, residual add, relu, requantize: 100
+    for ResNet-101) is one ``_epilogue``, K4 on the card.
     residual="bf16" keeps block outputs in ``out_dtype``.
     """
     if residual not in ("int8", "bf16"):
         raise ValueError("residual must be 'int8' or 'bf16'")
-    if (use_s2d_stem and tuple(qparams["stem"]["wq"].shape[:2]) == (7, 7)
+    stem = qparams["stem"]
+    if (use_s2d_stem and tuple(stem["wq"].shape[:2]) == (7, 7)
             and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
-        stem_out = torch.relu(_stem_s2d(x, qparams["stem"]))
+        acc = _stem_s2d(x, stem)
     else:
-        stem_out = torch.relu(
-            _qconv(x, qparams["stem"], stride=2, padding=3))
+        acc = conv2d_int8(requant(x, stem["inv_in"]), stem["wq"], stride=2,
+                          padding=3)
 
     if residual == "bf16":
+        stem_out = torch.relu(dequant(acc, stem["scale"], stem["bias"]))
         out = max_pool(stem_out.to(out_dtype), window=3, stride=2, padding=1)
         for stage, blocks in enumerate(qparams["layers"]):
             for b, qb in enumerate(blocks):
@@ -237,23 +270,25 @@ def resnet_int8_forward(qparams, x, out_dtype=torch.bfloat16,
     all_blocks = [(qb, 2 if (stage > 0 and b == 0) else 1)
                   for stage, blocks in enumerate(qparams["layers"])
                   for b, qb in enumerate(blocks)]
-    first_site = all_blocks[0][0]["conv1"]
     # round and clip are monotone, so the quantize commutes with the
     # max pool: pooling runs on s8.
-    q = max_pool(_requant(stem_out, first_site["inv_in"]),
+    q = max_pool(_epilogue(acc, stem, all_blocks[0][0]["conv1"]["inv_in"]),
                  window=3, stride=2, padding=1)
-    in_scale = 1.0 / first_site["inv_in"]
     for i, (qb, stride) in enumerate(all_blocks):
-        h = torch.relu(_conv_affine(q, qb["conv1"]))
-        h = torch.relu(_qconv(h, qb["conv2"], stride=stride, padding=1))
-        h = _qconv(h, qb["conv3"])
+        c1, c2, c3 = qb["conv1"], qb["conv2"], qb["conv3"]
+        h = _epilogue(conv2d_int8(q, c1["wq"]), c1, c2["inv_in"])
+        h = _epilogue(conv2d_int8(h, c2["wq"], stride=stride, padding=1), c2,
+                      c3["inv_in"])
+        inv_next = (None if i + 1 == len(all_blocks)
+                    else all_blocks[i + 1][0]["conv1"]["inv_in"])
+        acc = conv2d_int8(h, c3["wq"])
         if "downsample" in qb:
-            shortcut = _conv_affine(q, qb["downsample"], stride=stride)
+            ds = qb["downsample"]
+            q = _epilogue(acc, c3, inv_next, downsample=ds,
+                          other=conv2d_int8(q, ds["wq"], stride=stride),
+                          out_dtype=out_dtype)
         else:
-            shortcut = q.float() * in_scale
-        out = torch.relu(h + shortcut)
-        if i + 1 == len(all_blocks):
-            return out.to(out_dtype)
-        nxt = all_blocks[i + 1][0]["conv1"]
-        q = _requant(out, nxt["inv_in"])
-        in_scale = 1.0 / nxt["inv_in"]
+            # q was quantized with this block's conv1 input scale.
+            q = _epilogue(acc, c3, inv_next, in_inv=c1["inv_in"], other=q,
+                          out_dtype=out_dtype)
+    return q

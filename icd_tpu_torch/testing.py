@@ -13,7 +13,9 @@ input of the ``<end>`` logit, so captions end after a number of steps
 that depends on the image.
 
 ``bn_epilogue_sites`` lists K3's launches in a trunk's forward, and
-``bn_epilogue_case`` makes one site's operands from a seed.
+``bn_epilogue_case`` makes one site's operands from a seed;
+``int8_epilogue_sites`` and ``int8_epilogue_case`` do the same for K4
+on the static-int8 trunk.
 
 ``codec_corpus`` is a seeded set of JPEGs that the port's encoder writes
 (each subsampling, progressive, restart markers, grey, odd sizes,
@@ -163,6 +165,97 @@ def bn_epilogue_case(shape, form, generator, setup, device=None):
         s = act()
         shortcut = (s, random_bn(c, generator, setup, device)[0])
     return x, bn, compute_dtype, residual, shortcut
+
+
+def int8_tree(resnet, device=None):
+    """An int8 serving tree of ``resnet``'s shapes (``quantize_resnet``'s
+    layout) with empty values: for tracing the int8 trunk on the meta
+    device."""
+    def site(conv):
+        o, i, kh, kw = conv.shape
+        return {"wq": torch.empty(kh, kw, i, o, dtype=torch.int8,
+                                  device=device),
+                "scale": torch.empty(o, device=device),
+                "bias": torch.empty(o, device=device),
+                "inv_in": torch.empty((), device=device)}
+
+    tree = {"stem": site(resnet.stem.conv), "layers": []}
+    for blocks in resnet.layers:
+        tree["layers"].append([])
+        for b in blocks:
+            qb = {"conv1": site(b.conv1), "conv2": site(b.conv2),
+                  "conv3": site(b.conv3)}
+            if b.downsample is not None:
+                qb["downsample"] = site(b.downsample.conv)
+            tree["layers"][-1].append(qb)
+    return tree
+
+
+def int8_epilogue_sites(batch=64):
+    """K4's launches in one forward of the static-int8 ResNet-101 at 224 x
+    224 images, in order: (NHWC shape, residual, s8 output), residual 0
+    for none, 1 for an identity shortcut, 2 for a downsample; s8 False
+    at the last block, which writes the trunk's float output. Traced on
+    the meta device."""
+    from .models import resnet, resnet_int8
+
+    sites = []
+
+    def recording(acc, site, inv_next=None, in_inv=None, downsample=None,
+                  other=None, out_dtype=None):
+        residual = 1 if in_inv is not None else 2 if downsample else 0
+        sites.append((tuple(acc.shape), residual, inv_next is not None))
+        return torch.empty(acc.shape, device=acc.device, dtype=(
+            torch.int8 if inv_next is not None else out_dtype))
+
+    plain = resnet_int8._epilogue
+    resnet_int8._epilogue = recording
+    try:
+        with torch.device("meta"):
+            resnet_int8.resnet_int8_forward(int8_tree(resnet.ResNet()),
+                                            torch.empty(batch, 224, 224, 3))
+    finally:
+        resnet_int8._epilogue = plain
+    return sites
+
+
+def int8_epilogue_case(shape, residual, s8, generator, device=None):
+    """K4's operands at one site: (acc, terms, other), ``terms`` the
+    plain ``(scale, bias, inv_next, in_inv, ds_scale, ds_bias)``
+    (``inv_next`` None unless ``s8``). The int32 sums are at the trunk's
+    scale (|acc| < 2**20) with one in 16 scaled past 2**24, where their
+    cast to f32 rounds; scale and bias put most outputs inside the s8
+    range and some past it, so the clamp is taken too."""
+    c = shape[-1]
+
+    def sums():
+        acc = torch.randint(-2 ** 20, 2 ** 20, shape, generator=generator,
+                            dtype=torch.int32)
+        big = torch.randint(0, 16, shape, generator=generator) == 0
+        return torch.where(big, acc * 97, acc).to(device)
+
+    def channel(lo, hi):
+        return (lo + (hi - lo) * torch.rand(c, generator=generator)).to(
+            device)
+
+    def single(lo, hi):
+        return torch.tensor(lo + (hi - lo) * torch.rand(
+            (), generator=generator).item(), device=device)
+
+    acc = sums()
+    scale = channel(0.2, 2.0) * (100.0 / 2 ** 20)
+    bias = channel(-20.0, 20.0)
+    inv_next = single(0.3, 3.0) if s8 else None
+    in_inv = ds_scale = ds_bias = other = None
+    if residual == 1:
+        in_inv = single(0.5, 5.0)
+        other = torch.randint(-127, 128, shape, generator=generator,
+                              dtype=torch.int8).to(device)
+    elif residual == 2:
+        ds_scale = channel(0.2, 2.0) * (100.0 / 2 ** 20)
+        ds_bias = channel(-20.0, 20.0)
+        other = sums()
+    return acc, (scale, bias, inv_next, in_inv, ds_scale, ds_bias), other
 
 
 def f32_products(tf32=False):

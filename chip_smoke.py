@@ -411,11 +411,17 @@ import re
 import sys
 import time
 
+from icd_tpu_torch.bench_train import decoder_train_gflops
+from icd_tpu_torch.kernels import KERNELS
+from icd_tpu_torch.utils.benchmarking import (
+    BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, RESNET101_GFLOP,
+    SETTLE_CYCLES, card_line, device_us, greedy_steps, launch_counts, median,
+    reset_launches, result, roofline_ms, time_ms, trial_seconds)
+
 # Serving shapes: bench.py:36-38 and tools/bench_beam.py:16-20.
 IMAGES, BEAMS, PIX, ENC_DIM, ATT_DIM, DEC_DIM = 64, 5, 196, 2048, 512, 512
 EMBED, VOCAB = 512, 10000
 START_ID, END_ID = VOCAB - 3, VOCAB - 2
-SETTLE_CYCLES = 100_000_000  # about 50 ms of the card's clock
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
@@ -436,31 +442,19 @@ def log(phase, **fields):
         time.perf_counter() - STARTED, 1))), flush=True)
 
 
-def kernel_counters():
-    from icd_tpu_torch.ops.bn_epilogue import bn_epilogue
-    from icd_tpu_torch.ops.fused_attention import fused_attention
-    from icd_tpu_torch.ops.fused_beam import beam_search_fused
-
-    return [fused_attention, beam_search_fused, bn_epilogue]
-
-
-def zero_counters():
-    """K1's, K2's and K3's wrappers, their launch counts set to 0, and
-    K4's count too (read by ``check_k4``)."""
-    from icd_tpu_torch.ops.int8_epilogue import int8_epilogue
-
-    counters = kernel_counters()
-    for c in counters + [int8_epilogue]:
-        c.launches = 0
-    return counters
-
-
-def k2_bound_ms(ops, k, steps):
-    """Least time for one K2 search of ``steps`` steps on an H100, and
-    what bounds it (``ops.fused_beam.bound_ms``)."""
-    from icd_tpu_torch.ops.fused_beam import bound_ms
-
-    return bound_ms(ops, k, steps)
+def expect_launches(results, what, counts=None, **expected):
+    """Each kernel's launches since ``reset_launches`` (or ``counts``, a
+    dict of them): fails unless each count given in ``expected`` (by the
+    kernel's name in ``kernels.KERNELS``; None: read, not checked)
+    equals it, and records every kernel's under
+    ``results[kernel]["launches_by_path"][what]``. Returns the counts."""
+    counts = launch_counts() if counts is None else counts
+    for name, want in expected.items():
+        check(want is None or counts[name] == want,
+              "{}: {} launches".format(what, name), counts[name], want)
+    for name, n in counts.items():
+        results[name]["launches_by_path"][what] = n
+    return counts
 
 
 def phase_build():
@@ -515,9 +509,9 @@ def ptxas_line(phase, report, kernels, keep=None):
 def phase_k1(results):
     import torch
 
-    from icd_tpu_torch.k1_bench import k1_bound_ms, k1_inputs, time_ms
-
-    from icd_tpu_torch.ops.fused_attention import (fused_attention,
+    from icd_tpu_torch.k1_bench import k1_inputs
+    from icd_tpu_torch.ops.fused_attention import (bound_ms,
+                                                   fused_attention,
                                                    fused_attention_reference)
 
     gen = torch.Generator().manual_seed(1)
@@ -563,18 +557,18 @@ def phase_k1(results):
                         settle=True)
     plain_ms = time_ms(lambda: fused_attention_reference(*args16, **kw),
                        flush=flush, settle=True)
-    bound_ms, bound_by = k1_bound_ms(args16, (ctx, alpha))
-    results["fused_attention"] = dict(
+    bound, bound_by = bound_ms(args16, (ctx, alpha))
+    results["fused_attention"].update(
         max_abs_err=bf16_ctx_err, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms=bound, bound_by=bound_by,
         phase_us=k1_phases(args16, flush),
-        rows_per_image_1=k1_one_row(args32, flush), launches_by_path={})
+        rows_per_image_1=k1_one_row(args32, flush))
     log("k1", shapes=dict(images=IMAGES, rows_per_image=BEAMS, P=PIX,
                           D=ENC_DIM, A=ATT_DIM, H=DEC_DIM),
         f32_ctx_err=f32_ctx_err, f32_alpha_err=f32_alpha_err,
         bf16_ctx_err=bf16_ctx_err, bf16_alpha_err=bf16_alpha_err,
-        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, share_of_bound=bound / kernel_ms,
         rows_per_image_1=results["fused_attention"]["rows_per_image_1"])
 
 
@@ -586,14 +580,10 @@ def phase_k3(results):
     issue them."""
     import torch
 
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.models.resnet import bn_relu, bn_terms
-    from icd_tpu_torch.ops.bn_epilogue import (bn_epilogue,
-                                               bn_epilogue_reference,
-                                               bound_ms)
+    from icd_tpu_torch.ops.bn_epilogue import bn_epilogue_reference, bound_ms
     from icd_tpu_torch.testing import bn_epilogue_case, bn_epilogue_sites
 
-    results["bn_epilogue"] = dict(launches_by_path={})
     gen = torch.Generator().manual_seed(3)
     sites = bn_epilogue_sites(IMAGES)
     cases, plain = {}, {}
@@ -618,12 +608,11 @@ def phase_k3(results):
             for site in sites:
                 bn_epilogue_reference(*plain[site])
 
-        zero_counters()
+        reset_launches()
         kernel()
         torch.cuda.synchronize()
-        check(bn_epilogue.launches == len(sites) == 100,
-              "K3 launches an encoder", bn_epilogue.launches)
-        record_k3(results, "k3_encoder_bf16", bn_epilogue.launches)
+        check(len(sites) == 100, "K3's sites in an encoder", len(sites))
+        expect_launches(results, "k3_encoder_bf16", bn_epilogue=100)
         host = []
         for _ in range(21):
             torch.cuda.synchronize()
@@ -653,13 +642,11 @@ def phase_k4(results):
     launch."""
     import torch
 
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.ops.int8_epilogue import (Terms, bound_ms,
                                                  int8_epilogue,
                                                  int8_epilogue_reference)
     from icd_tpu_torch.testing import int8_epilogue_case, int8_epilogue_sites
 
-    results["int8_epilogue"] = dict(launches_by_path={})
     bf16 = torch.bfloat16
     gen = torch.Generator().manual_seed(4)
     sites = int8_epilogue_sites(IMAGES)
@@ -683,12 +670,11 @@ def phase_k4(results):
             for site in sites:
                 int8_epilogue_reference(*plain[site])
 
-        zero_counters()
+        reset_launches()
         kernel()
         torch.cuda.synchronize()
-        check(int8_epilogue.launches == len(sites) == 100,
-              "K4 launches a forward", int8_epilogue.launches)
-        record_k4(results, "k4_forward_bf16", int8_epilogue.launches)
+        check(len(sites) == 100, "K4's sites in a forward", len(sites))
+        expect_launches(results, "k4_forward_bf16", int8_epilogue=100)
         host = []
         for _ in range(21):
             torch.cuda.synchronize()
@@ -716,8 +702,8 @@ def k1_one_row(args32, flush):
     and its bf16 time beside its bound and the plain version's."""
     import torch
 
-    from icd_tpu_torch.k1_bench import k1_bound_ms, time_ms
-    from icd_tpu_torch.ops.fused_attention import (fused_attention,
+    from icd_tpu_torch.ops.fused_attention import (bound_ms,
+                                                   fused_attention,
                                                    fused_attention_reference)
 
     one32 = args32[:2] + (args32[2][:IMAGES].contiguous(),) + args32[3:]
@@ -743,11 +729,11 @@ def k1_one_row(args32, flush):
                         settle=True)
     plain_ms = time_ms(lambda: fused_attention_reference(*one16),
                        flush=flush, settle=True)
-    bound_ms, bound_by = k1_bound_ms(one16, (ctx, alpha))
+    bound, bound_by = bound_ms(one16, (ctx, alpha))
     return dict(images=IMAGES, f32_ctx_err=f32_ctx_err,
                 f32_alpha_err=f32_alpha_err, bf16_ctx_err=err.max().item(),
                 bf16_alpha_err=bf16_alpha_err, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
 
 
 def k1_phases(args, flush):
@@ -886,9 +872,9 @@ def phase_path_f32(models, results):
                                     device="cuda")
     check(not torch.backends.cudnn.allow_tf32, "TF32 off for f32")
     imgs = uint8_images(8, seed=2)
-    zero_counters()
+    reset_launches()
     grid = captioner.encode(imgs)
-    check_k3(results, "path_f32", 100)
+    expect_launches(results, "path_f32", bn_epilogue=100, int8_epilogue=0)
     with torch.inference_mode():
         cpu_grid = encoder_attention_forward(copy.deepcopy(encoder).cpu(),
                                              imgs[:1])
@@ -901,7 +887,7 @@ def phase_path_f32(models, results):
     check(grid_err <= 1e-3 * grid_scale, "f32 grid vs CPU", grid_err,
           grid_scale)
 
-    zero_counters()
+    reset_launches()
     out = captioner.decode(grid)
     torch.cuda.synchronize()
     launches = fused_attention.launches
@@ -975,8 +961,7 @@ def phase_k2(path_f32, results):
     grid64 = captioner.encode(uint8_images(IMAGES, seed=3))
     out64, err64, loop_err64 = k2_against_plain(
         captioner.decoder, grid64, BEAMS, START_ID, END_ID, 51, "f32 b64")
-    results["fused_beam"] = dict(max_abs_err=max(err, err64),
-                                 launches_by_path={})
+    results["fused_beam"]["max_abs_err"] = max(err, err64)
     log("k2", ragged=dict(images=3, beams=3, P=49, V=vocab, max_steps=9,
                           steps=small["steps"], alpha_err_vs_plain=small_err,
                           seq_len=small["seq_len"].tolist()),
@@ -993,7 +978,6 @@ def phase_serve_bf16(models, results):
     import torch
 
     from icd_tpu_torch.decoding.serve import make_beam_captioner
-    from icd_tpu_torch.ops.fused_attention import fused_attention
 
     encoder, decoder = models
     captioner = make_beam_captioner(encoder, decoder, START_ID, END_ID,
@@ -1005,20 +989,19 @@ def phase_serve_bf16(models, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    zero_counters()
+    reset_launches()
     t0 = time.perf_counter()
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    check_k3(results, "serve_bf16", 100)
     out = captioner.decode(grid)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = fused_attention.launches
     peak = torch.cuda.max_memory_allocated()
 
-    check(launches > 0 and launches == out["steps"], "K1 launches vs steps",
-          launches, out["steps"])
+    launches = expect_launches(results, "serve_bf16",
+                               fused_attention=out["steps"], bn_epilogue=100,
+                               int8_epilogue=0)["fused_attention"]
     check(grid.shape == (IMAGES, 14, 14, ENC_DIM), "grid shape", grid.shape)
     check(grid.dtype == torch.bfloat16 and bool(grid.isfinite().all()),
           "bf16 finite grid")
@@ -1028,7 +1011,6 @@ def phase_serve_bf16(models, results):
     check(bool(((lens >= 2) & (lens <= 52)).all()), "seq_len range")
     check(bool(out["alphas"].isfinite().all()), "finite alphas")
     results["fused_attention"]["launches"] = launches
-    results["fused_attention"]["launches_by_path"]["serve_bf16"] = launches
     log("serve_bf16", images=IMAGES, beams=BEAMS, vocab=VOCAB,
         encoder_ms=(t1 - t0) * 1e3, beam_ms=(t2 - t1) * 1e3,
         steps=out["steps"], k1_launches=launches,
@@ -1051,12 +1033,6 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        return 0.0
 
     kernels = sorted(((device_us(e), e.count, e.key)
                       for e in prof.key_averages()
@@ -1084,9 +1060,7 @@ def phase_serve_fused_bf16(models, results):
     import torch
 
     from icd_tpu_torch.decoding.serve import make_beam_captioner
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.ops import fused_beam
-    from icd_tpu_torch.ops.fused_attention import fused_attention
 
     encoder, decoder = models
     captioner = make_beam_captioner(encoder, decoder, START_ID, END_ID,
@@ -1099,21 +1073,19 @@ def phase_serve_fused_bf16(models, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    zero_counters()
+    reset_launches()
     t0 = time.perf_counter()
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    check_k3(results, "serve_fused_bf16", 100)
     out = captioner.decode(grid)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = fused_beam.beam_search_fused.launches
-    k1_launches = fused_attention.launches
     peak = torch.cuda.max_memory_allocated()
 
-    check(launches == 1, "K2 launches per batch", launches)
-    check(k1_launches == 0, "K1 launched by the fused path", k1_launches)
+    launches = expect_launches(results, "serve_fused_bf16", fused_attention=0,
+                               fused_beam=1, bn_epilogue=100,
+                               int8_epilogue=0)["fused_beam"]
     check(out["seq"].shape == (IMAGES, 52), "seq shape", out["seq"].shape)
     check(bool((out["seq"][:, 0] == START_ID).all()), "seq starts with start")
     lens = out["seq_len"]
@@ -1167,9 +1139,8 @@ def phase_serve_fused_bf16(models, results):
                         flush=flush, settle=True)
     plain_ms = time_ms(lambda: fused_beam._search_plain(ops, *search),
                        iters=3, warmup=1, flush=flush)
-    bound_ms, bound_by = k2_bound_ms(ops, BEAMS, steps)
+    bound_ms, bound_by = fused_beam.bound_ms(ops, BEAMS, steps)
     phases = k2_phases(ops, search, flush)
-    results["fused_beam"]["launches_by_path"]["serve_fused_bf16"] = launches
     results["fused_beam"].update(launches=launches, ms=kernel_ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, phase_ms=phases)
@@ -1239,7 +1210,6 @@ def phase_beam_eval(captioner, results, phase="beam_eval"):
     import torch
 
     from icd_tpu_torch.beam_eval import caption_images
-    from icd_tpu_torch.ops.fused_attention import fused_attention
     from icd_tpu_torch.ops.fused_beam import beam_search_fused
     from icd_tpu_torch.vocabulary import Vocabulary
 
@@ -1253,26 +1223,25 @@ def phase_beam_eval(captioner, results, phase="beam_eval"):
     def load_batch(ids):
         return pool[[i - 1000 for i in ids]]
 
-    zero_counters()
+    reset_launches()
     t0 = time.perf_counter()
     rows = caption_images(captioner, img_ids, load_batch, vocab, IMAGES,
                           log=lambda line: None)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k1, k2 = fused_attention.launches, beam_search_fused.launches
     check(len(rows) == n, phase + " results", len(rows))
     check([r["image_id"] for r in rows] == img_ids, phase + " image ids")
     check(all(isinstance(r["caption"], str) for r in rows),
           phase + " captions")
     # The float trunk launches K3 100 times a batch, the int8 one K4.
     int8 = captioner.qresnet is not None
-    check_k3(results, phase, 0 if int8 else 300, k4=300 if int8 else 0)
-    if captioner.beam_fn is beam_search_fused:
-        check(k2 == 3 and k1 == 0, "K2 launches for 3 batches", k2, k1)
-        results["fused_beam"]["launches_by_path"][phase] = k2
-    else:
-        check(k1 >= 3 and k2 == 0, "K1 launches for 3 batches", k1, k2)
-        results["fused_attention"]["launches_by_path"][phase] = k1
+    fused = captioner.beam_fn is beam_search_fused
+    counts = expect_launches(
+        results, phase, fused_attention=0 if fused else None,
+        fused_beam=3 if fused else 0, bn_epilogue=0 if int8 else 300,
+        int8_epilogue=300 if int8 else 0)
+    k1, k2 = counts["fused_attention"], counts["fused_beam"]
+    check(fused or k1 >= 3, "K1 launches for 3 batches", k1, k2)
     words = [len(r["caption"].split()) for r in rows]
     log(phase, images=n, batch=IMAGES, batches=3, k1_launches=k1,
         k2_launches=k2, int8_encoder=captioner.qresnet is not None,
@@ -1310,8 +1279,6 @@ def phase_int8_conv():
     import torch
     import torch.nn.functional as F
 
-    from icd_tpu_torch.bench import card_line
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.ops.quant import conv2d_int8, gemm_layout, int8_conv
 
     gen = torch.Generator().manual_seed(11)
@@ -1368,9 +1335,7 @@ def op_split_ms(prof):
 
     out = {}
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+        us = device_us(e)
         if e.device_type == DeviceType.CPU and us > 0:
             out[e.key] = out.get(e.key, 0.0) + us / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
@@ -1426,23 +1391,22 @@ def phase_int8_encoder(models, results):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import (build_int8_backbone,
                                               make_beam_captioner)
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.models.encoder import encoder_attention_forward_int8
     from icd_tpu_torch.models.resnet_int8 import N_SITES_RESNET101, tree_to
 
     encoder, decoder = models
     bf16 = torch.bfloat16
-    zero_counters()
+    reset_launches()
     t0 = time.perf_counter()
     qresnet, act_maxes = build_int8_backbone(
         encoder, bf16, "cuda", calib_imgs=uint8_images(16, seed=1))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     # Calibration: one float forward over the 16 images.
-    check_k3(results, "int8_calibration", 100)
+    expect_launches(results, "int8_calibration", bn_epilogue=100,
+                    int8_epilogue=0)
     check(act_maxes.shape == (N_SITES_RESNET101,)
           and bool(np.isfinite(act_maxes).all()), "act_maxes",
           act_maxes.shape)
@@ -1527,25 +1491,16 @@ def phase_int8_encoder(models, results):
     return act_maxes
 
 
-def greedy_steps(tokens, max_len):
-    """Decode steps the greedy loop ran: up to the last caption's <end>."""
-    import torch
-
-    ended = tokens == END_ID
-    first = torch.where(ended.any(1), ended.int().argmax(1) + 1, max_len)
-    return int(first.max())
-
-
 def timed_serve(captioner, imgs):
     """One warmed-up batch through ``captioner``: (output, encoder ms,
-    decode ms, launches of K1, K2 and K3, peak bytes). The counters are
-    set to 0 just before the batch and read just after it."""
+    decode ms, each kernel's launches, peak bytes). The counts are set to
+    0 just before the batch and read just after it."""
     import torch
 
     captioner(imgs)  # warm-up: cuBLASLt and cuDNN plans, kernel load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = zero_counters()
+    reset_launches()
     t0 = time.perf_counter()
     grid = captioner.encode(imgs)
     torch.cuda.synchronize()
@@ -1553,7 +1508,7 @@ def timed_serve(captioner, imgs):
     out = captioner.decode(grid)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = [c.launches for c in counters]
+    launches = launch_counts()
     return (out, (t1 - t0) * 1e3, (t2 - t1) * 1e3, launches,
             torch.cuda.max_memory_allocated())
 
@@ -1575,7 +1530,6 @@ def check_greedy(out, n, max_len, what):
 def phase_greedy(models, results):
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import make_attention_captioner
     from icd_tpu_torch.ops.fused_attention import fused_attention
 
@@ -1587,11 +1541,11 @@ def phase_greedy(models, results):
                                    device="cuda")
     check(not torch.backends.cudnn.allow_tf32, "TF32 off for f32")
     grid = f32.encode(uint8_images(8, seed=2))
-    zero_counters()
+    reset_launches()
     toks, alphas = f32.decode(grid)
     torch.cuda.synchronize()
     launches = fused_attention.launches
-    steps = greedy_steps(toks, max_len)
+    steps = greedy_steps(toks, END_ID)
     check(launches == steps, "f32 greedy K1 launches vs steps", launches,
           steps)
     with plain_attention():
@@ -1606,13 +1560,12 @@ def phase_greedy(models, results):
                                     compute_dtype=torch.bfloat16,
                                     device="cuda")
     imgs = uint8_images(IMAGES, seed=3).cuda()
-    out, enc_ms, dec_ms, (k1, _, _), peak = timed_serve(bf16, imgs)
-    check_k3(results, "greedy_bf16", 100)
-    steps64 = greedy_steps(out[0], max_len)
-    check(k1 > 0 and k1 == steps64, "bf16 greedy K1 launches vs steps", k1,
-          steps64)
+    out, enc_ms, dec_ms, launches64, peak = timed_serve(bf16, imgs)
+    steps64 = greedy_steps(out[0], END_ID)
+    k1 = expect_launches(results, "greedy_bf16", launches64,
+                         fused_attention=steps64, bn_epilogue=100,
+                         int8_epilogue=0)["fused_attention"]
     finished = check_greedy(out, IMAGES, max_len, "bf16 greedy")
-    results["fused_attention"]["launches_by_path"]["greedy_bf16"] = k1
     log("greedy", f32=dict(images=8, steps=steps, k1_launches=launches,
                            alpha_err_vs_plain=f32_alpha_err),
         images=IMAGES, max_len=max_len, encoder_ms=enc_ms, decode_ms=dec_ms,
@@ -1624,7 +1577,6 @@ def phase_greedy(models, results):
 def phase_serve_int8_greedy(models, act_maxes, results):
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import make_int8_attention_captioner
     from icd_tpu_torch.ops.qlinear import qmatmul, quantize_linear
     from icd_tpu_torch.ops.quant import int_mm
@@ -1638,15 +1590,13 @@ def phase_serve_int8_greedy(models, act_maxes, results):
             encoder, decoder, START_ID, END_ID, max_len=max_len,
             compute_dtype=torch.bfloat16, act_maxes=act_maxes,
             int8_decoder=int8_decoder, device="cuda")
-        out, enc_ms, dec_ms, (k1, _, _), peak = timed_serve(cap, imgs)
-        steps = greedy_steps(out[0], max_len)
+        out, enc_ms, dec_ms, launches, peak = timed_serve(cap, imgs)
+        steps = greedy_steps(out[0], END_ID)
         name = "int8_decoder" if int8_decoder else "float_decoder"
-        check_k3(results, "serve_int8_greedy_bf16/" + name, 0, k4=100)
-        check(k1 > 0 and k1 == steps, name + " K1 launches vs steps", k1,
-              steps)
+        k1 = expect_launches(results, "serve_int8_greedy_bf16/" + name,
+                             launches, fused_attention=steps, bn_epilogue=0,
+                             int8_epilogue=100)["fused_attention"]
         finished = check_greedy(out, IMAGES, max_len, name)
-        results["fused_attention"]["launches_by_path"][
-            "serve_int8_greedy_bf16/" + name] = k1
         runs[name] = dict(encoder_ms=enc_ms, decode_ms=dec_ms, steps=steps,
                           k1_launches=k1, finished=finished,
                           captions_per_s=IMAGES / ((enc_ms + dec_ms) / 1e3),
@@ -1680,7 +1630,6 @@ def phase_serve_int8_beam(models, act_maxes, results):
 
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.beam import beam_search_batched
     from icd_tpu_torch.decoding.serve import make_beam_captioner
     from icd_tpu_torch.ops.fused_beam import beam_search_fused
@@ -1698,17 +1647,13 @@ def phase_serve_int8_beam(models, act_maxes, results):
                                   compute_dtype=torch.bfloat16,
                                   device="cuda", beam_fn=beam_fn,
                                   act_maxes=act_maxes)
-        out, enc_ms, beam_ms, (k1, k2, _), peak = timed_serve(cap, imgs)
-        check_k3(results, "serve_int8_beam_bf16/" + name, 0, k4=100)
-        if name == "fused":
-            check(k2 == 1 and k1 == 0, "int8 fused launches", k1, k2)
-            results["fused_beam"]["launches_by_path"][
-                "serve_int8_beam_bf16/" + name] = k2
-        else:
-            check(k1 > 0 and k1 == out["steps"] and k2 == 0,
-                  name + " K1 launches vs steps", k1, out["steps"], k2)
-            results["fused_attention"]["launches_by_path"][
-                "serve_int8_beam_bf16/" + name] = k1
+        out, enc_ms, beam_ms, launches, peak = timed_serve(cap, imgs)
+        fused = name == "fused"
+        expect_launches(results, "serve_int8_beam_bf16/" + name, launches,
+                        fused_attention=0 if fused else out["steps"],
+                        fused_beam=1 if fused else 0, bn_epilogue=0,
+                        int8_epilogue=100)
+        k1, k2 = launches["fused_attention"], launches["fused_beam"]
         check(out["seq"].shape == (IMAGES, 52), name + " seq shape")
         check(bool((out["seq"][:, 0] == START_ID).all()),
               name + " seq starts with start")
@@ -1747,54 +1692,6 @@ def baseline_models(models):
     return Encoder(models[0].resnet, embed), decoder
 
 
-def check_no_kernel(counters, what, results, k3=0, k4=None):
-    """A path that decodes without K1 and K2: neither launched, and K3
-    ``k3`` times (100 a forward of the float trunk in eval mode, none in
-    train mode or on the int8 trunk; None: read, not checked) and K4
-    ``k4`` times (100 a forward of the int8 trunk; read, not checked, by
-    default). Records the four counts."""
-    launches = [c.launches for c in counters]
-    check(launches[:2] == [0, 0], what + ": K1, K2 launched", launches)
-    check(k3 is None or launches[2] == k3, what + ": K3 launches",
-          launches[2], k3)
-    record_k3(results, what, launches[2])
-    check_k4(results, what, k4)
-    results["fused_attention"]["launches_by_path"][what] = launches[0]
-    results["fused_beam"]["launches_by_path"][what] = launches[1]
-
-
-def record_k3(results, what, launches):
-    results["bn_epilogue"]["launches_by_path"][what] = launches
-
-
-def record_k4(results, what, launches):
-    results["int8_epilogue"]["launches_by_path"][what] = launches
-
-
-def check_k4(results, what, expected):
-    """K4's launches since the counters were set to 0, against
-    ``expected`` (100 a forward of the int8 trunk, 0 on the float one;
-    None: read, not checked); recorded under ``what``."""
-    from icd_tpu_torch.ops.int8_epilogue import int8_epilogue
-
-    check(expected is None or int8_epilogue.launches == expected,
-          what + ": K4 launches", int8_epilogue.launches, expected)
-    record_k4(results, what, int8_epilogue.launches)
-
-
-def check_k3(results, what, expected, k4=0):
-    """K3's launches since the counters were set to 0, against
-    ``expected`` (100 a forward of the float trunk in eval mode, 0 on
-    the int8 trunk), and K4's against ``k4`` (100 a forward of the int8
-    trunk, 0 on the float one); recorded under ``what``."""
-    from icd_tpu_torch.ops.bn_epilogue import bn_epilogue
-
-    check(bn_epilogue.launches == expected, what + ": K3 launches",
-          bn_epilogue.launches, expected)
-    record_k3(results, what, bn_epilogue.launches)
-    check_k4(results, what, k4)
-
-
 def phase_baseline_f32(base, results):
     import torch
 
@@ -1810,11 +1707,12 @@ def phase_baseline_f32(base, results):
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 off for f32")
     imgs = uint8_images(8, seed=2)
-    counters = zero_counters()
+    reset_launches()
     feats = captioner.encode(imgs)
     toks = captioner.decode(feats)
     torch.cuda.synchronize()
-    check_no_kernel(counters, "baseline_f32", results, k3=100)
+    expect_launches(results, "baseline_f32", fused_attention=0, fused_beam=0,
+                    bn_epilogue=100)
     with torch.inference_mode():
         cpu_feats = encoder_forward(copy.deepcopy(encoder).cpu(), imgs[:1])
         cpu_toks = greedy_decode_baseline(
@@ -1839,7 +1737,6 @@ def phase_baseline_f32(base, results):
 def phase_baseline_serve_bf16(base, act_maxes, results):
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.decoding.serve import (make_captioner,
                                               make_int8_captioner)
 
@@ -1865,11 +1762,12 @@ def phase_baseline_serve_bf16(base, act_maxes, results):
     runs = {}
     for name, build in builds.items():
         cap = build()
-        toks, enc_ms, dec_ms, _, peak = timed_serve(cap, imgs)
+        toks, enc_ms, dec_ms, launches, peak = timed_serve(cap, imgs)
         # The float trunk (the dynamic int8 path's BN too) launches K3
         # 100 times a batch; the static int8 trunk never.
-        check_no_kernel(kernel_counters(), "baseline_serve_bf16/" + name,
-                        results, k3=0 if name.startswith("static") else 100)
+        expect_launches(results, "baseline_serve_bf16/" + name, launches,
+                        fused_attention=0, fused_beam=0,
+                        bn_epilogue=0 if name.startswith("static") else 100)
         check(toks.shape == (IMAGES, max_len), name + " token shape",
               toks.shape)
         check(bool(((toks >= 0) & (toks < VOCAB)).all())
@@ -1892,10 +1790,11 @@ def phase_bench(base, results):
     encoder, decoder = base
     imgs = bench.images(bench.BATCH, bench.IMAGE_SIZE, device="cuda")
     for mode in ("int8", "bf16"):
-        counters = zero_counters()
+        reset_launches()
         one, result = bench.measure(encoder, decoder, imgs, mode)
         torch.cuda.synchronize()
-        check_no_kernel(counters, "bench/" + mode, results, k3=None)
+        expect_launches(results, "bench/" + mode, fused_attention=0,
+                        fused_beam=0)
         check(result["value"] > 0 and one["captions_with_end"] == 0
               and one["steps"] == bench.DECODE_LEN
               and one["int8_decoder"] == (mode == "int8"),
@@ -1931,21 +1830,21 @@ def k2_first_search(module):
 
 def bench_rows(name, rows, results, labels):
     """Check a bench's rows (labels in its tool's order, positive times)
-    and print its last line; returns K1's and K2's launches in it."""
+    and print its last line; returns K1's and K2's launches in its rows
+    (K3's and K4's since ``reset_launches``: the rows count K1 and K2
+    only), recorded under ``benches/<name>``."""
     import torch
-
-    from icd_tpu_torch.utils.benchmarking import result
 
     torch.cuda.synchronize()
     check([r["label"] for r in rows] == list(labels)
           and all(r["ms"] > 0 and math.isfinite(r["rate"]) for r in rows),
           name + " rows", [(r["label"], r["ms"]) for r in rows])
     print(json.dumps(result(name, rows, "cuda")), flush=True)
-    k1 = sum(r["k1_launches"] for r in rows)
-    k2 = sum(r["k2_launches"] for r in rows)
-    results["fused_attention"]["launches_by_path"]["benches/" + name] = k1
-    results["fused_beam"]["launches_by_path"]["benches/" + name] = k2
-    return k1, k2
+    counts = dict(launch_counts(),
+                  fused_attention=sum(r["k1_launches"] for r in rows),
+                  fused_beam=sum(r["k2_launches"] for r in rows))
+    expect_launches(results, "benches/" + name, counts)
+    return counts["fused_attention"], counts["fused_beam"]
 
 
 def k2_raw_against_plain(decoder, grid, max_steps, what):
@@ -2045,7 +1944,6 @@ def phase_benches(models, base, results):
     from icd_tpu_torch import (bench, bench_attention, bench_beam,
                                bench_bert, bench_fused_beam, bench_int8,
                                bench_train)
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.ops import fused_beam
     from icd_tpu_torch.ops.fused_beam import beam_search_fused_reference
 
@@ -2054,7 +1952,7 @@ def phase_benches(models, base, results):
     seconds, launches = {}, {}
 
     def run(name, fn, labels):
-        zero_counters()
+        reset_launches()
         t0 = time.perf_counter()
         rows = fn()
         seconds[name] = time.perf_counter() - t0
@@ -2115,7 +2013,7 @@ def phase_benches(models, base, results):
     k2_ms = time_ms(lambda: fused_beam._start(ops, BEAMS, START_ID, END_ID,
                                               51),
                     iters=10, flush=flush, settle=True)
-    k2_bound, k2_bound_by = k2_bound_ms(ops, BEAMS, 51)
+    k2_bound, k2_bound_by = fused_beam.bound_ms(ops, BEAMS, 51)
     del dec16, grid, dec, first_grid, ops, flush, seen
 
     train_imgs = bench.images(TRAIN_BATCH, 224, "cuda", seed=2)
@@ -2149,16 +2047,6 @@ def phase_benches(models, base, results):
 
 # Training shapes: tools/bench_train.py:24-26.
 TRAIN_BATCH, TRAIN_LEN, TRAIN_BATCHES = 32, 25, 20
-RESNET101_GFLOP = 15.6  # forward per 224x224 image (tools/bench_train.py:30)
-F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
-
-
-def decoder_train_gflop(b, t, embed=EMBED):
-    """Model GFLOP of one attention-decoder forward + backward, counted as
-    tools/bench_train.py:40-70 counts them (bench_train's count)."""
-    from icd_tpu_torch.bench_train import decoder_train_gflops
-
-    return decoder_train_gflops(True, e=embed, b=b, t=t)
 
 
 def phase_train_step_f32(models, gen, results):
@@ -2189,14 +2077,15 @@ def phase_train_step_f32(models, gen, results):
                               tf32=tf32)
         return grads, grads.pop(SCORE_BIAS).abs().max().item()
 
-    counters = zero_counters()
+    reset_launches()
     card = step("cuda")
     with torch.no_grad():
         grid, _ = encoder_attention_forward(encoder, imgs.to("cuda"),
                                              train=True)
     same_card, card_noise = same_grid("cuda")
     torch.cuda.synchronize()
-    check_no_kernel(counters, "train_step_f32", results)
+    expect_launches(results, "train_step_f32", fused_attention=0, fused_beam=0,
+                    bn_epilogue=0)
     fault, (fault_same, _) = step("cuda", tf32=True), same_grid("cuda", True)
     cpu = step("cpu")
     same_cpu, cpu_noise = same_grid("cpu")
@@ -2267,7 +2156,6 @@ def train_readings(run, batches, encode, light_s):
     the step's model FLOPs at the row's dense peaks, in seconds."""
     import torch
 
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.training.common import train_epoch
 
     events = []
@@ -2289,22 +2177,23 @@ def train_readings(run, batches, encode, light_s):
     epoch_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     step_ms = sorted(s.elapsed_time(e) for s, e in events)
-    median_ms = step_ms[len(step_ms) // 2]
+    step_median = median(step_ms)
     check(len(losses) == len(batches)
           and all(math.isfinite(x) for x in losses), "train losses", losses)
     encoder_ms = time_ms(encode, iters=5, warmup=1)
     _, wall_ms, busy_ms, kernels = profiled(lambda: run(batches[0]))
     return dict(
-        median_step_ms=median_ms, step_ms_min_max=[step_ms[0], step_ms[-1]],
-        images_per_s=TRAIN_BATCH / (median_ms / 1e3), epoch_s=epoch_s,
+        median_step_ms=step_median,
+        step_ms_min_max=[step_ms[0], step_ms[-1]],
+        images_per_s=TRAIN_BATCH / (step_median / 1e3), epoch_s=epoch_s,
         epoch_images_per_s=TRAIN_BATCH * len(batches) / epoch_s,
         encoder_forward_ms=encoder_ms,
-        decoder_fwd_bwd_adam_ms=median_ms - encoder_ms,
+        decoder_fwd_bwd_adam_ms=step_median - encoder_ms,
         profiled_step_wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1 - busy_ms / wall_ms,
-        idle_share_of_median_step=1 - busy_ms / median_ms,
+        idle_share_of_median_step=1 - busy_ms / step_median,
         peak_memory_bytes=peak, resident_before_bytes=resident,
-        peak_share=light_s / (median_ms / 1e3),
+        peak_share=light_s / (step_median / 1e3),
         losses=[losses[0], losses[-1]],
         top=[dict(name=name[:60], ms=us / 1e3, count=count)
              for us, count, name in kernels[:8]])
@@ -2347,7 +2236,6 @@ def phase_train_f32(models, gen, results):
     decoder_lr 1e-3. Returns the trained (encoder, decoder)."""
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.data.pipeline import to_device
     from icd_tpu_torch.models.encoder import encoder_attention_forward
 
@@ -2360,10 +2248,11 @@ def phase_train_f32(models, gen, results):
             encoder_attention_forward(enc, imgs, train=True)
 
     gflop = (TRAIN_BATCH * RESNET101_GFLOP
-             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN))
-    counters = zero_counters()
+             + decoder_train_gflops(True, b=TRAIN_BATCH, t=TRAIN_LEN))
+    reset_launches()
     row = train_readings(run, batches, encode, gflop * 1e9 / F32_FLOP_PER_S)
-    check_no_kernel(counters, "train_f32", results)
+    expect_launches(results, "train_f32", fused_attention=0, fused_beam=0,
+                    bn_epilogue=0)
     learn = learns(attention_trainer(models, 1e-3)[0], batches[0],
                    "train_f32")
     row["f32_peak_share"] = row.pop("peak_share")
@@ -2397,7 +2286,7 @@ def phase_eval_f32(trained, gen, results):
                for i in range(0, n, batch)]
     step = make_eval_step(*trained)
     f32_products()
-    counters = zero_counters()
+    reset_launches()
     losses, preds = [], []
     t0 = time.perf_counter()
     for b in batches:
@@ -2405,7 +2294,8 @@ def phase_eval_f32(trained, gen, results):
         losses.append(loss.cpu())
         preds.append(pred.cpu())
     eval_s = time.perf_counter() - t0
-    check_no_kernel(counters, "eval_f32", results, k3=300)
+    expect_launches(results, "eval_f32", fused_attention=0, fused_beam=0,
+                    bn_epilogue=300)
     losses, preds = torch.cat(losses), torch.cat(preds)
     check(losses.shape == (n,) and preds.shape == (n, 19)
           and bool(losses.isfinite().all()), "eval shapes", losses.shape,
@@ -2443,17 +2333,6 @@ def phase_eval_f32(trained, gen, results):
     check(same >= 0.99, "eval argmax card vs CPU", same)
     check(all(math.isfinite(v) and v >= 0 for v in scores.values()),
           "eval scores", scores)
-
-
-INT8_OPS_PER_S = 1979e12  # H100 SXM, dense int8 (NVIDIA data sheet)
-
-
-def baseline_train_gflop(b, t):
-    """Model GFLOP of one baseline-decoder forward + backward, counted as
-    tools/bench_train.py:40-50 counts them (bench_train's count)."""
-    from icd_tpu_torch.bench_train import decoder_train_gflops
-
-    return decoder_train_gflops(False, b=b, t=t)
 
 
 def train_baseline_models(models):
@@ -2527,10 +2406,11 @@ def phase_train_baseline_step_f32(base, gen, results):
         return train_step_record(*base, imgs, captions, None, device, lr=lr,
                                  tf32=tf32)
 
-    counters = zero_counters()
+    reset_launches()
     card = step("cuda")
     torch.cuda.synchronize()
-    check_no_kernel(counters, "train_baseline_step_f32", results)
+    expect_launches(results, "train_baseline_step_f32", fused_attention=0,
+                    fused_beam=0, bn_epilogue=0)
     fault = step("cuda", tf32=True)
     cpu = step("cpu")
     errs, worst = worst_errors(card, cpu, lr)
@@ -2570,9 +2450,7 @@ def phase_train_baseline(base, gen, results):
     Returns the f32 row's trained (encoder, decoder)."""
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.data.pipeline import to_device
-    from icd_tpu_torch.k1_bench import BF16_FLOP_PER_S
     from icd_tpu_torch.models.encoder import (encoder_forward,
                                               encoder_forward_int8)
 
@@ -2580,12 +2458,12 @@ def phase_train_baseline(base, gen, results):
     batches = train_batches(gen, TRAIN_BATCHES, seed=200)
     imgs = to_device(batches[0]["imgs"], "cuda")
     trunk = TRAIN_BATCH * RESNET101_GFLOP
-    dec_gflop = baseline_train_gflop(TRAIN_BATCH, TRAIN_LEN)
+    dec_gflop = decoder_train_gflops(False, b=TRAIN_BATCH, t=TRAIN_LEN)
     rows, trained = {}, None
     for name, dtype, int8, trunk_peak, dec_peak in (
             ("f32", None, False, F32_FLOP_PER_S, F32_FLOP_PER_S),
             ("amp", bf16, False, BF16_FLOP_PER_S, BF16_FLOP_PER_S),
-            ("amp_int8", bf16, True, INT8_OPS_PER_S, BF16_FLOP_PER_S)):
+            ("amp_int8", bf16, True, INT8_OP_PER_S, BF16_FLOP_PER_S)):
         run, enc, dec, qresnet = baseline_trainer(
             base, 1e-4, dtype, batches if int8 else None)
 
@@ -2597,12 +2475,12 @@ def phase_train_baseline(base, gen, results):
                 else:
                     encoder_forward_int8(enc, qresnet, imgs, dtype)
 
-        counters = zero_counters()
+        reset_launches()
         rows[name] = train_readings(
             run, batches, encode,
             trunk * 1e9 / trunk_peak + dec_gflop * 1e9 / dec_peak)
-        check_no_kernel(counters, "train_baseline/" + name, results,
-                        k3=None if int8 else 0)
+        expect_launches(results, "train_baseline/" + name, fused_attention=0,
+                        fused_beam=0, bn_epilogue=None if int8 else 0)
         if trained is None:
             trained = (enc, dec)
     learn = {name: learns(baseline_trainer(base, 1e-3, dtype)[0],
@@ -2620,9 +2498,7 @@ def phase_train_amp_step(models, base, gen, results):
     attention --amp steps at train_f32's shapes."""
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.data.pipeline import to_device
-    from icd_tpu_torch.k1_bench import BF16_FLOP_PER_S
     from icd_tpu_torch.models.encoder import encoder_attention_forward
     from icd_tpu_torch.testing import seeded_captions, train_step_record
 
@@ -2642,11 +2518,12 @@ def phase_train_amp_step(models, base, gen, results):
     steps = {}
     for family, (encoder, decoder), dl in (("baseline", base, None),
                                            ("attention", models, lens)):
-        counters = zero_counters()
+        reset_launches()
         card = train_step_record(encoder, decoder, imgs, captions, dl, "cuda",
                                  lr=lr, compute_dtype=bf16)
         torch.cuda.synchronize()
-        check_no_kernel(counters, "train_amp_step/" + family, results)
+        expect_launches(results, "train_amp_step/" + family, fused_attention=0,
+                        fused_beam=0, bn_epilogue=0)
         cpu = train_step_record(encoder, decoder, imgs, captions, dl, "cpu",
                                 lr=lr, compute_dtype=bf16)
         _, worst = worst_errors(card, cpu, lr)
@@ -2679,11 +2556,12 @@ def phase_train_amp_step(models, base, gen, results):
                                       train=True)
 
     gflop = (TRAIN_BATCH * RESNET101_GFLOP
-             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN))
-    counters = zero_counters()
+             + decoder_train_gflops(True, b=TRAIN_BATCH, t=TRAIN_LEN))
+    reset_launches()
     row = train_readings(run, batches, encode,
                          gflop * 1e9 / BF16_FLOP_PER_S)
-    check_no_kernel(counters, "train_amp_step/attention_steps", results)
+    expect_launches(results, "train_amp_step/attention_steps",
+                    fused_attention=0, fused_beam=0, bn_epilogue=0)
     log("train_amp_step", batch=4, caption_length=12, vocab=VOCAB,
         limits=limits, **steps, attention_amp=dict(
             batch=TRAIN_BATCH, caption_length=TRAIN_LEN,
@@ -2720,13 +2598,13 @@ def phase_train_int8_step(models, base, gen, results):
             for i in range(INT8_BN_WARMUP_BATCHES)]
     prepared = {}
     for device in ("cuda", "cpu"):
-        counters = zero_counters()
+        reset_launches()
         resnet = copy.deepcopy(models[0].resnet).to(device)
         t0 = time.perf_counter()
         qresnet = prepare_int8_encoder(resnet, warm, None)
         prepared[device] = (resnet, qresnet, time.perf_counter() - t0)
-        check_no_kernel(counters, "train_int8_step/prepare_" + device,
-                        results, k3=None)
+        expect_launches(results, "train_int8_step/prepare_" + device,
+                        fused_attention=0, fused_beam=0)
     stats = relative_errors(
         dict(prepared["cuda"][0].named_buffers()),
         {n: b.to("cuda") for n, b in prepared["cpu"][0].named_buffers()})
@@ -2743,12 +2621,12 @@ def phase_train_int8_step(models, base, gen, results):
     for family, encoder, decoder, dl in (
             ("baseline", Encoder(resnet, base[0].embed), base[1], None),
             ("attention", EncoderAttention(resnet), models[1], lens)):
-        counters = zero_counters()
+        reset_launches()
         card = train_step_record(encoder, decoder, imgs, captions, dl, "cuda",
                                  lr=1e-4, qresnet=qresnet)
         torch.cuda.synchronize()
-        check_no_kernel(counters, "train_int8_step/" + family, results,
-                        k3=None)
+        expect_launches(results, "train_int8_step/" + family,
+                        fused_attention=0, fused_beam=0)
         cpu = train_step_record(encoder, decoder, imgs, captions, dl, "cpu",
                                 lr=1e-4, qresnet=qresnet)
         loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
@@ -2797,7 +2675,7 @@ def phase_eval_baseline_f32(trained, gen, results):
                for i in range(0, n, batch)]
     step = make_eval_step(*trained)
     f32_products()
-    counters = zero_counters()
+    reset_launches()
     losses, preds = [], []
     t0 = time.perf_counter()
     for b in batches:
@@ -2805,7 +2683,8 @@ def phase_eval_baseline_f32(trained, gen, results):
         losses.append(loss.cpu())
         preds.append(pred.cpu())
     eval_s = time.perf_counter() - t0
-    check_no_kernel(counters, "eval_baseline_f32", results, k3=300)
+    expect_launches(results, "eval_baseline_f32", fused_attention=0,
+                    fused_beam=0, bn_epilogue=300)
     losses, preds = torch.cat(losses), torch.cat(preds)
     check(losses.shape == (n,) and preds.shape == (n, 20)
           and bool(losses.isfinite().all()), "baseline eval shapes",
@@ -2939,8 +2818,6 @@ def phase_bert_f32(gen, results):
     import numpy as np
     import torch
 
-    from icd_tpu_torch.k1_bench import (F32_FLOP_PER_S, HBM_BYTES_PER_S,
-                                        time_ms)
     from icd_tpu_torch.models.bert import (BERT_BASE, bert_aligned_forward,
                                            init_bert)
     from icd_tpu_torch.models.bert_embed import (BertCaptionEmbedder,
@@ -2973,11 +2850,12 @@ def phase_bert_f32(gen, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    counters = zero_counters()
+    reset_launches()
     got = card(captions).cpu()
     got_len = card(captions, lengths=lengths).cpu()
     torch.cuda.synchronize()
-    check_no_kernel(counters, "bert_f32", results)
+    expect_launches(results, "bert_f32", fused_attention=0, fused_beam=0,
+                    bn_epilogue=0)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     want = cpu(captions)
@@ -2996,8 +2874,7 @@ def phase_bert_f32(gen, results):
     gflop = bert_forward_gflop(mask)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    bound_ms = max(gflop * 1e9 / F32_FLOP_PER_S,
-                   weight_bytes / HBM_BYTES_PER_S) * 1e3
+    bound_ms, _ = roofline_ms(weight_bytes, gflop * 1e9, F32_FLOP_PER_S)
     errs = dict(aligned=rel_err(got, want), lengths=rel_err(got_len,
                                                             want_len))
     tf32_err = rel_err(fault, want)
@@ -3034,7 +2911,6 @@ def phase_bert_int8(bert, tokenizer, vocab, gen, results):
     import numpy as np
     import torch
 
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.models.bert import (bert_encoder_forward,
                                            quantize_bert)
     from icd_tpu_torch.models.bert_embed import (BertCaptionEmbedder,
@@ -3056,10 +2932,11 @@ def phase_bert_int8(bert, tokenizer, vocab, gen, results):
     valid = few[1].bool()
     shared = SharedQuantization()
     with torch.no_grad():
-        counters = zero_counters()
+        reset_launches()
         q_card = bert_encoder_forward(qcard, *(t.cuda() for t in few)).cpu()
         torch.cuda.synchronize()
-        check_no_kernel(counters, "bert_int8", results)
+        expect_launches(results, "bert_int8", fused_attention=0, fused_beam=0,
+                        bn_epilogue=0)
         with shared.applied():
             q_cpu = bert_encoder_forward(qcpu, *few)
         readings = {}
@@ -3186,12 +3063,13 @@ def phase_train_bert_step_f32(bmodels, bert, tokenizer, vocab, gen,
         grid, _ = encoder_attention_forward(encoder, imgs.to("cuda"),
                                             train=True)
     same_cpu, cpu_noise = same_grid("cpu")
-    counters = zero_counters()
+    reset_launches()
     card = step("cuda")
     same_card, card_noise = same_grid("cuda")
     flipped = branches.flipped
     torch.cuda.synchronize()
-    check_no_kernel(counters, "train_bert_step_f32", results)
+    expect_launches(results, "train_bert_step_f32", fused_attention=0,
+                    fused_beam=0, bn_epilogue=0)
     fault, (fault_same, _) = step("cuda", tf32=True), same_grid("cuda", True)
     tf32_flipped = branches.flipped
     cpu = step("cpu")
@@ -3254,9 +3132,7 @@ def phase_train_bert(bmodels, bert, tokenizer, vocab, gen, results):
     trained (encoder, decoder) and the card's embedder."""
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.data.pipeline import to_device
-    from icd_tpu_torch.k1_bench import time_ms
     from icd_tpu_torch.models.bert_embed import (BertCaptionEmbedder,
                                                  caption_keys)
     from icd_tpu_torch.models.encoder import encoder_attention_forward
@@ -3275,10 +3151,12 @@ def phase_train_bert(bmodels, bert, tokenizer, vocab, gen, results):
     pieces = embedder.piece_arrays(captions, caption_keys(captions))[1]
     bert_gflop = bert_forward_gflop(pieces)
     gflop = (TRAIN_BATCH * RESNET101_GFLOP + bert_gflop
-             + decoder_train_gflop(TRAIN_BATCH, TRAIN_LEN, BERT_DIM))
-    counters = zero_counters()
+             + decoder_train_gflops(True, e=BERT_DIM, b=TRAIN_BATCH,
+                                   t=TRAIN_LEN))
+    reset_launches()
     row = train_readings(run, batches, encode, gflop * 1e9 / F32_FLOP_PER_S)
-    check_no_kernel(counters, "train_bert", results)
+    expect_launches(results, "train_bert", fused_attention=0, fused_beam=0,
+                    bn_epilogue=0)
     bert_ms = time_ms(lambda: embedder(batches[0]["captions"]), iters=10,
                       warmup=2)
     learn = learns(bert_trainer(bmodels, embedder, 1e-3)[0], batches[0],
@@ -3322,7 +3200,7 @@ def phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results):
         batches.append((imgs[i:i + batch], captions[i:i + batch],
                         lengths[i:i + batch] - 1, emb))
     step = make_eval_step(*trained)
-    counters = zero_counters()
+    reset_launches()
     losses, preds = [], []
     t0 = time.perf_counter()
     for im, cap, dl, emb in batches:
@@ -3331,7 +3209,8 @@ def phase_eval_bert_f32(trained, bert, tokenizer, vocab, gen, results):
         losses.append(loss.cpu())
         preds.append(pred.cpu())
     eval_s = time.perf_counter() - t0
-    check_no_kernel(counters, "eval_bert_f32", results, k3=300)
+    expect_launches(results, "eval_bert_f32", fused_attention=0, fused_beam=0,
+                    bn_epilogue=300)
     losses, preds = torch.cat(losses), torch.cat(preds)
     check(losses.shape == (n,) and preds.shape == (n, 19)
           and bool(losses.isfinite().all()), "bert eval shapes",
@@ -3499,14 +3378,14 @@ def k1_call_errors(seen):
 
 def mesh_captions(mesh, models, imgs, probe=False):
     """The sharded greedy and per-step beam captioners of the attention
-    model on ``mesh`` at bf16 over ``imgs``: tokens, beam outputs, K1's
-    launches on each path and, with ``probe``, K1's first call held
+    model on ``mesh`` at bf16 over ``imgs``: tokens, beam outputs, each
+    kernel's launches on each path (``launches``: greedy's, beam's; the
+    beam's K2 checked to be 0) and, with ``probe``, K1's first call held
     against its plain version."""
     import torch
 
     from icd_tpu_torch.decoding.serve import (
         make_sharded_attention_captioner, make_sharded_beam_captioner)
-    from icd_tpu_torch.ops.fused_attention import fused_attention
 
     encoder, decoder = models
     greedy = make_sharded_attention_captioner(encoder, decoder, START_ID,
@@ -3515,22 +3394,24 @@ def mesh_captions(mesh, models, imgs, probe=False):
                                        mesh, beam_size=BEAMS)
     greedy(imgs[:8])
     beam(imgs[:8])  # warm-up: kernel load, cuDNN plans
-    zero_counters()
+    reset_launches()
     with k1_first_call() as seen:
         toks, _ = greedy(imgs)
     torch.cuda.synchronize()
-    k1_greedy = fused_attention.launches
+    on_greedy = launch_counts()
     k1_errs = k1_call_errors(seen) if probe else None
-    counters = zero_counters()
+    reset_launches()
     out = beam(imgs)
     torch.cuda.synchronize()
-    k1_beam = fused_attention.launches
-    check(counters[1].launches == 0, "sharded beam launched K2",
-          counters[1].launches)
+    on_beam = launch_counts()
+    check(on_beam["fused_beam"] == 0, "sharded beam launched K2",
+          on_beam["fused_beam"])
     return dict(greedy=greedy, beam=beam, toks=toks.cpu(),
                 seq=out["seq"].cpu(), seq_len=out["seq_len"].cpu(),
                 found=out["found"].cpu(), steps=out["steps"],
-                k1_greedy=k1_greedy, k1_beam=k1_beam, k1_errs=k1_errs)
+                launches=(on_greedy, on_beam),
+                k1_greedy=on_greedy["fused_attention"],
+                k1_beam=on_beam["fused_attention"], k1_errs=k1_errs)
 
 
 def phase_mesh_nccl1(models, gen, results):
@@ -3563,7 +3444,7 @@ def phase_mesh_nccl1(models, gen, results):
     try:
         mesh = make_mesh(1, 1, device="cuda")
         runs, fields = {}, {}
-        counters = zero_counters()
+        reset_launches()
         for family, fam_models in fams.items():
             meshed = mesh_train(mesh, family, *(copy.deepcopy(m)
                                                 for m in fam_models),
@@ -3585,7 +3466,8 @@ def phase_mesh_nccl1(models, gen, results):
             check(bit_equal, "mesh_nccl1 {}: one-rank mesh steps bit-equal "
                   "to no mesh".format(family), errs)
             runs[family] = meshed
-        check_no_kernel(counters, "mesh_nccl1_train", results)
+        expect_launches(results, "mesh_nccl1_train", fused_attention=0,
+                        fused_beam=0, bn_epilogue=0)
         caps = mesh_captions(mesh, models, imgs, probe=True)
         # The one-card captioners the sharded ones wrap, on the batch.
         toks, _ = caps["greedy"].captioner(imgs)
@@ -3599,14 +3481,15 @@ def phase_mesh_nccl1(models, gen, results):
         check(torch.equal(caps[key], ref[key].cpu()),
               "mesh_nccl1 beam " + key)
     check(caps["steps"] == ref["steps"], "mesh_nccl1 beam steps")
-    steps = greedy_steps(caps["toks"], 25)
-    check(caps["k1_greedy"] == steps and caps["k1_beam"] == caps["steps"]
-          > 0, "mesh_nccl1 K1 launches vs steps", caps["k1_greedy"], steps,
-          caps["k1_beam"], caps["steps"])
-    paths = results["fused_attention"]["launches_by_path"]
-    paths["mesh_nccl1_greedy"] = caps["k1_greedy"]
-    paths["mesh_nccl1_beam"] = caps["k1_beam"]
-    results["fused_beam"]["launches_by_path"]["mesh_nccl1_serve"] = 0
+    steps = greedy_steps(caps["toks"], END_ID)
+    on_greedy, on_beam = caps["launches"]
+    expect_launches(results, "mesh_nccl1_greedy", on_greedy,
+                    fused_attention=steps)
+    expect_launches(results, "mesh_nccl1_beam", on_beam,
+                    fused_attention=caps["steps"])
+    expect_launches(results, "mesh_nccl1_serve", {
+        name: on_greedy[name] + on_beam[name] for name in KERNELS},
+        fused_beam=0)
     torch.save(dict(models=fams, batches=batches, imgs=imgs.cpu()),
                os.path.join(MESH_DIR, "models.pt"))
     torch.save(dict(runs=runs, toks=caps["toks"], seq=caps["seq"]),
@@ -3669,7 +3552,7 @@ def mesh_gloo_rank(rank, world, mesh_dir):
     faults = {"clean": contextlib.nullcontext,
               "tf32": contextlib.nullcontext,
               "n_model": lambda: library_collectives(2)}
-    counters = zero_counters()
+    reset_launches()
     for family, fam_models in saved["models"].items():
         for fault, context in faults.items():
             f32_products(tf32=fault == "tf32")
@@ -3684,14 +3567,14 @@ def mesh_gloo_rank(rank, world, mesh_dir):
             if rank == 0:
                 out["errors"]["{}_{}".format(family, fault)] = mesh_errors(
                     got, ref["runs"][family], MESH_LR)
-    out["train_launches"] = [c.launches for c in counters]
+    out["train_launches"] = launch_counts()
     f32_products()
     t0 = time.perf_counter()
     caps = mesh_captions(mesh, saved["models"]["attention"], imgs,
                          probe=rank == 0)
     out["serve_s"] = time.perf_counter() - t0
-    out.update({k: caps[k] for k in ("k1_greedy", "k1_beam", "steps",
-                                     "k1_errs")})
+    out.update({k: caps[k] for k in ("launches", "k1_greedy", "k1_beam",
+                                     "steps", "k1_errs")})
     # The same greedy captioner in f32 (TF32 off), where a batch of 32
     # and one of 64 round alike.
     f32 = make_sharded_attention_captioner(
@@ -3779,8 +3662,8 @@ def phase_mesh_gloo_shared(results, backend="gloo"):
             check(any(f[key] > limit for f in faults), "{} {} {}: TF32 or "
                   "the n_model-times gradient exceeds the limit".format(
                       phase, family, key), [f[key] for f in faults], limit)
-    check(all(o["train_launches"] == [0, 0, 0] for o in outs),
-          phase + ": the train steps launched K1, K2 or K3",
+    check(not any(n for o in outs for n in o["train_launches"].values()),
+          phase + ": the train steps launched a kernel",
           [o["train_launches"] for o in outs])
     check(all(o["k1_greedy"] > 0 and o["k1_beam"] > 0 for o in outs),
           phase + ": K1 launched on every rank")
@@ -3794,10 +3677,13 @@ def phase_mesh_gloo_shared(results, backend="gloo"):
     check(first["f32_greedy_equal_one_card"] >= IMAGES - 2,
           phase + ": f32 sharded greedy tokens vs one card",
           first["f32_greedy_equal_one_card"])
-    paths = results["fused_attention"]["launches_by_path"]
-    paths[phase + "_greedy"] = [o["k1_greedy"] for o in outs]
-    paths[phase + "_beam"] = [o["k1_beam"] for o in outs]
-    results["fused_beam"]["launches_by_path"][phase] = 0
+    # Each rank's counts on each path, and the sum of all.
+    for i, path in enumerate(("_greedy", "_beam")):
+        expect_launches(results, phase + path, {
+            name: [o["launches"][i][name] for o in outs] for name in KERNELS})
+    expect_launches(results, phase, {
+        name: sum(c[name] for o in outs for c in o["launches"])
+        for name in KERNELS}, fused_beam=0)
 
 
 # ---------------------------------------------------------------------------
@@ -3903,13 +3789,11 @@ def phase_pth_artifacts(models, base, gen, results):
 
     from icd_tpu_torch import export_reference
     from icd_tpu_torch.beam_eval import caption_images
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
     from icd_tpu_torch.decoding.serve import make_beam_captioner
     from icd_tpu_torch.export import (export_reference_checkpoint,
                                       resnet_to_torch_state_dict)
     from icd_tpu_torch.models.encoder import encoder_attention_forward
-    from icd_tpu_torch.ops.fused_attention import fused_attention
     from icd_tpu_torch.ops.fused_beam import beam_search_fused
     from icd_tpu_torch.params import (decoder_from_jax, decoder_to_jax,
                                       encoder_from_jax, encoder_to_jax,
@@ -3999,21 +3883,19 @@ def phase_pth_artifacts(models, base, gen, results):
                                             beam_size=BEAMS,
                                             compute_dtype=torch.bfloat16,
                                             device="cuda")
-            counters = zero_counters()
+            reset_launches()
             with k1_first_call() as seen:
                 out = captioner(imgs)
             torch.cuda.synchronize()
-            k1 = counters[0].launches
-            check(k1 > 0 and k1 == out["steps"] and counters[1].launches == 0,
-                  label + " per-step beam: K1 launches", k1, out["steps"])
+            # The .pth run's counts stay recorded: it runs second.
+            k1_pth = expect_launches(
+                results, "pth_artifacts/gen_captions",
+                fused_attention=out["steps"], fused_beam=0)["fused_attention"]
             tokens[label] = out["seq"].cpu()
             if label == "pth":
                 k1_errs = k1_call_errors(seen)
-                k1_pth = k1
         check(torch.equal(tokens["ckpt"], tokens["pth"]),
               ".pth.tar beam tokens equal the .ckpt's")
-        results["fused_attention"]["launches_by_path"][
-            "pth_artifacts/gen_captions"] = k1_pth
 
         pool = uint8_images(130, seed=12).numpy()
         img_ids = list(range(1000, 1130))
@@ -4023,18 +3905,15 @@ def phase_pth_artifacts(models, base, gen, results):
                 enc, dec, START_ID, END_ID, beam_size=BEAMS,
                 compute_dtype=torch.bfloat16, device="cuda",
                 beam_fn=beam_search_fused)
-            counters = zero_counters()
+            reset_launches()
             rows[label] = caption_images(
                 captioner, img_ids, lambda ids: pool[[i - 1000 for i in ids]],
                 vocab, IMAGES, log=lambda line: None)
             torch.cuda.synchronize()
-            k2 = counters[1].launches
-            check(k2 == 3 and counters[0].launches == 0,
-                  label + " beam_eval --fused: K2 launches", k2)
+            k2 = expect_launches(results, "pth_artifacts/beam_eval_fused",
+                                 fused_attention=0, fused_beam=3)["fused_beam"]
         check(rows["ckpt"] == rows["pth"],
               ".pth.tar fused captions equal the .ckpt's")
-        results["fused_beam"]["launches_by_path"][
-            "pth_artifacts/beam_eval_fused"] = k2
         with torch.no_grad():
             grid = encoder_attention_forward(pth_models[0].cuda(),
                                              imgs[:8]).reshape(8, -1, ENC_DIM)
@@ -4120,10 +3999,6 @@ def timed_steps(run, batches):
             [s.elapsed_time(e) for s, e in events])
 
 
-def median(xs):
-    return sorted(xs)[len(xs) // 2]
-
-
 def phase_device_image_cache(models, gen, results):
     """``ICD_TPU_DEVICE_IMAGE_CACHE=12`` at COCO-2014 train's size (82,783
     distinct images of 224x224x3 uint8 on the card), train_f32's cell
@@ -4139,7 +4014,6 @@ def phase_device_image_cache(models, gen, results):
 
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.data.pipeline import device_image_cache_from_env
     from icd_tpu_torch.training.common import stage_batches
 
@@ -4148,7 +4022,7 @@ def phase_device_image_cache(models, gen, results):
                       for b in batches]
     runs = {}
     with slice11_root():
-        counters = zero_counters()
+        reset_launches()
         run, _, _ = attention_trainer(models, 1e-4)
         losses, ms = timed_steps(run, stage_batches(
             MemoryLoader(direct_batches), "cuda"))
@@ -4179,7 +4053,8 @@ def phase_device_image_cache(models, gen, results):
                 peak_memory_bytes=torch.cuda.max_memory_allocated())
             del buf
             torch.cuda.empty_cache()
-        check_no_kernel(counters, "device_image_cache", results, k3=None)
+        expect_launches(results, "device_image_cache", fused_attention=0,
+                        fused_beam=0)
     coco = runs["coco_12gb"]
     check(coco["capacity_rows"] == COCO_TRAIN_IMAGES
           and coco["misses"] == CACHE_POOL
@@ -4210,7 +4085,6 @@ def phase_prefetch_async_ckpt(models, gen, results):
     and the median after (the writers)."""
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.checkpoint import (load_checkpoint, save_checkpoint,
                                           wait_pending_saves)
     from icd_tpu_torch.data.pipeline import host_prefetch
@@ -4226,7 +4100,7 @@ def phase_prefetch_async_ckpt(models, gen, results):
             ("host_thread", False)]
     runs, save_at = {}, 10
     with slice11_root():
-        counters = zero_counters()
+        reset_launches()
         for i, (feed, async_save) in enumerate(plan + plan[::-1]):
             label = "{}/{}_save{}".format(feed, "async" if async_save
                                           else "sync", "" if i < 4 else "_2")
@@ -4271,7 +4145,8 @@ def phase_prefetch_async_ckpt(models, gen, results):
                 median_step_ms_after_save=median(ms[save_at + 1:]),
                 wait_at_end_ms=wait_ms)
         os.environ.pop("ICD_TPU_CKPT_ASYNC", None)
-        check_no_kernel(counters, "prefetch_async_ckpt", results, k3=None)
+        expect_launches(results, "prefetch_async_ckpt", fused_attention=0,
+                        fused_beam=0)
     log("prefetch_async_ckpt", steps=TRAIN_BATCHES, batch=TRAIN_BATCH,
         save_after_step=save_at, **runs, card=card_line())
 
@@ -4285,7 +4160,6 @@ def phase_profile_train(models, gen, results):
 
     import torch
 
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.training import attention
     from icd_tpu_torch.training.common import make_adam, train_epochs
 
@@ -4298,13 +4172,14 @@ def phase_profile_train(models, gen, results):
         enc, dec = (copy.deepcopy(m) for m in models)
         optimizer = make_adam(args, enc, dec, None)
         step = attention.make_train_step(enc, dec, optimizer, 1.0, 0.5, 5.0)
-        counters = zero_counters()
+        reset_launches()
         t0 = time.perf_counter()
         train_epochs(args, MemoryLoader(batches), attention.batch_step(
             step, "cuda", torch.Generator("cuda").manual_seed(1)), enc, dec,
             optimizer, 0, {}, device="cuda")
         seconds = time.perf_counter() - t0
-        check_no_kernel(counters, "profile_train", results, k3=None)
+        expect_launches(results, "profile_train", fused_attention=0,
+                        fused_beam=0)
     path = os.path.join(out_dir, "train_profiled", "trace.json")
     check(os.path.exists(path), "profile trace written", path)
     with open(path) as f:
@@ -4531,7 +4406,6 @@ def phase_coco_eval():
     be 1.0) and the timed eval at val2017's density: bbox over
     COCO_BBOX_IMAGES images x 100 results, segm over COCO_SEGM_IMAGES x
     20."""
-    from icd_tpu_torch.bench import card_line
     from icd_tpu_torch.native import mask as maskUtils
 
     t0 = time.perf_counter()
@@ -4638,11 +4512,12 @@ def phase_captions_demo(models, base, bert_state, results):
         return out
 
     f32_products()
-    counters = zero_counters()
+    reset_launches()
     card = run("cuda")
     # Two float forwards an image (the caption's, then the features'),
     # three images, three families.
-    check_no_kernel(counters, "captions_demo", results, k3=100 * 2 * 3 * 3)
+    expect_launches(results, "captions_demo", fused_attention=0, fused_beam=0,
+                    bn_epilogue=100 * 2 * 3 * 3)
     cpu = run("cpu")
     out = {}
     for family in families:
@@ -4711,17 +4586,6 @@ S13_TRAIN, S13_VAL = 200, 130  # the corpus of the file-fed phases
 S13_NAME = "s13"
 
 
-def median_ms(fn, n=30):
-    """Median ms of ``n`` calls of ``fn`` after one warm-up call."""
-    fn()
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-    return median(times) * 1e3
-
-
 def phase_jpeg_codec():
     """The port's JPEG codec on this machine's host: the library built by
     g++ (seconds; "cached" when build/ held it), testing.codec_corpus()
@@ -4749,14 +4613,18 @@ def phase_jpeg_codec():
     data = dict(corpus)["420_q90"]
     img = jpeg.decode(data)
     check(img.shape == (480, 640, 3), "640x480 corpus file", img.shape)
+
+    def host_ms(fn):  # the median of 30 calls after one warm-up call
+        return median(trial_seconds(lambda i: fn(), 30, "cpu", 1)) * 1e3
+
     log("jpeg_codec", library=os.path.basename(path), library_cached=cached,
         build_s=build_s, files=len(corpus),
         bytes=sum(len(d) for _, d in corpus), digest=digest,
         digest_equals_pil=True, corpus_decode_s=corpus_decode_s,
-        threads=1, decode_ms_640x480=median_ms(lambda: jpeg.decode(data)),
-        decode_resize_ms_640x480=median_ms(
+        threads=1, decode_ms_640x480=host_ms(lambda: jpeg.decode(data)),
+        decode_resize_ms_640x480=host_ms(
             lambda: jpeg.decode_resize(data, 224, 224)),
-        encode_ms_640x480=median_ms(lambda: jpeg.encode(img, quality=90)))
+        encode_ms_640x480=host_ms(lambda: jpeg.encode(img, quality=90)))
 
 
 @contextlib.contextmanager
@@ -4905,15 +4773,17 @@ def phase_gen_captions_file(root, results):
     image = val_files(root)[0]
     argv = [S13_NAME + "_0.ckpt", image, "--encoder", "float", "--dtype",
             "f32"]
-    counters = zero_counters()
+    reset_launches()
     t0 = time.perf_counter()
     with k1_first_call() as seen:
         _, card = quiet(gen_captions.main, argv + ["--device", "cuda"])
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    k1, k2, _ = (c.launches for c in counters)
-    check(k1 >= 1 and k2 == 0, "gen_captions_file: K1, K2 launches", k1, k2)
-    check_k3(results, "gen_captions_file", 100)  # one image, one forward
+    # One image, one forward of the float trunk.
+    counts = expect_launches(results, "gen_captions_file", fused_beam=0,
+                             bn_epilogue=100, int8_epilogue=0)
+    k1, k2 = counts["fused_attention"], counts["fused_beam"]
+    check(k1 >= 1, "gen_captions_file: K1 launches", k1, k2)
     args, kw, (ctx, alpha) = seen[0]
     ref_ctx, ref_alpha = fused_attention_reference(*args, **kw)
     ctx_err = (ctx - ref_ctx).abs().max().item()
@@ -4926,7 +4796,6 @@ def phase_gen_captions_file(root, results):
     cpu_s = time.perf_counter() - t0
     check(card == cpu and len(card[-1].split()) >= 3,
           "gen_captions_file: card words equal the CPU's", card, cpu)
-    results["fused_attention"]["launches_by_path"]["gen_captions_file"] = k1
     log("gen_captions_file", image=os.path.basename(image), k1_launches=k1,
         k2_launches=k2, k1_ctx_err_vs_plain=ctx_err,
         k1_alpha_err_vs_plain=alpha_err, card_s=card_s, cpu_s=cpu_s,
@@ -4958,31 +4827,25 @@ def phase_beam_eval_files(root, model, results):
         out = os.path.join(root, "eval_data", "s13_{}.json".format(label))
         argv = [S13_NAME + "_0.ckpt", "--act_maxes", act_maxes, "--out",
                 out, "--device", "cuda"] + extra
-        counters = zero_counters()
+        reset_launches()
         t0 = time.perf_counter()
         with k1_first_call() as seen:
             quiet(beam_eval.main, argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        k1, k2, k3 = (c.launches for c in counters)
-        record_k3(results, "beam_eval_files/" + label, k3)
+        fused = label == "fused"
+        counts = expect_launches(results, "beam_eval_files/" + label,
+                                 fused_attention=0 if fused else None,
+                                 fused_beam=3 if fused else 0)
+        k1, k2 = counts["fused_attention"], counts["fused_beam"]
         with open(out) as f:
             got = json.load(f)
         check(len(got) == S13_VAL and all(
             isinstance(r["caption"], str) for r in got),
             "beam_eval_files " + label + ": results", len(got))
-        if label == "fused":
-            check(k2 == 3 and k1 == 0, "beam_eval --fused over files: K2, K1",
-                  k2, k1)
-            results["fused_beam"]["launches_by_path"][
-                "beam_eval_files/fused"] = k2
-            k1_errs = None
-        else:
-            check(k1 >= 3 and k2 == 0, "per-step beam_eval over files: K1, K2",
-                  k1, k2)
-            results["fused_attention"]["launches_by_path"][
-                "beam_eval_files/per_step"] = k1
-            k1_errs = k1_call_errors(seen)
+        check(fused or k1 >= 3, "per-step beam_eval over files: K1 launches",
+              k1, k2)
+        k1_errs = None if fused else k1_call_errors(seen)
         rows[label] = dict(k1_launches=k1, k2_launches=k2, seconds=seconds,
                            captions_per_s=S13_VAL / seconds,
                            k1_errs_vs_plain=k1_errs, first=got[0])
@@ -5021,11 +4884,12 @@ def phase_train_files(root, results):
         argv = [name, "--model", "attention", "--batch_size",
                 str(TRAIN_BATCH), "--epochs", "1", "--workers", "8",
                 "--print_freq", "1", "--device", "cuda"]
-        counters = zero_counters()
+        reset_launches()
         t0 = time.perf_counter()
         _, lines = quiet(train.main, argv)
         wall = time.perf_counter() - t0
-        check_no_kernel(counters, "train_files", results, k3=None)
+        expect_launches(results, "train_files", fused_attention=0,
+                        fused_beam=0)
         times = [float(t) * 1e3 for t in re.findall(r"Time: ([0-9.]+)",
                                                     "\n".join(lines))]
         losses = unpack_checkpoint(load_checkpoint(
@@ -5078,10 +4942,10 @@ def phase_serving_e2e(models, results):
     t0 = time.perf_counter()
     blobs = bench_serving_e2e.make_jpegs(bench_serving_e2e.BATCH * 4, 0)
     make_s = time.perf_counter() - t0
-    counters = zero_counters()
+    reset_launches()
     sweep, summary = bench_serving_e2e.run(base[0], base[1], blobs, "cuda",
                                            n_batches=8)
-    check_no_kernel(counters, "serving_e2e", results, k3=None)
+    expect_launches(results, "serving_e2e", fused_attention=0, fused_beam=0)
     check(summary["e2e_captions_equal_resident"],
           "serving_e2e: end-to-end captions equal the resident batch's")
     check(all(v > 0 for v in (summary["host_images_per_s"],
@@ -5112,9 +4976,7 @@ def nccl4():
 
     check(torch.cuda.device_count() >= 4, "--nccl4 needs four cards",
           torch.cuda.device_count())
-    results = {name: {"launches_by_path": {}}
-               for name in ("fused_attention", "fused_beam", "bn_epilogue",
-                            "int8_epilogue")}
+    results = {name: {"launches_by_path": {}} for name in KERNELS}
     phase_build()
     models = full_width_models()
     phase_mesh_nccl1(models, torch.Generator().manual_seed(7), results)
@@ -5127,10 +4989,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import icd_tpu_torch.kernels  # noqa: F401  (fails outside the repo)
-    from icd_tpu_torch.bench import card_line
-
     print(card_line(), flush=True)
     if sys.argv[1:] == ["--nccl4"]:
         nccl4()
@@ -5139,7 +4997,7 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    results = {}
+    results = {name: {"launches_by_path": {}} for name in KERNELS}
     phase_build()
     phase_k1(results)
     phase_k3(results)

@@ -45,9 +45,9 @@ import time
 import torch
 
 from .device import resolve_device
-from .k1_bench import BF16_FLOP_PER_S, INT8_OP_PER_S
-from .utils.benchmarking import (card_line, peak_bytes, reset_peak, sync,
-                                 trial_seconds)
+from .utils.benchmarking import (BF16_FLOP_PER_S, INT8_OP_PER_S,
+                                 RESNET101_GFLOP, card_line, peak_bytes,
+                                 reset_peak, sync, trial_seconds)
 
 BATCH = 64
 DECODE_LEN = 25
@@ -57,7 +57,6 @@ TRIALS = 3
 EMBED = HIDDEN = 512
 IMAGE_SIZE = 224
 BASELINE_CAPTIONS_PER_SEC = 246.0
-RESNET101_GFLOP = 15.6  # 2 * 7.8 GMAC forward at 224x224, per image
 PEAKS = {"int8": (INT8_OP_PER_S, "H100 SXM dense int8 1979 TOPS"),
          "bf16": (BF16_FLOP_PER_S, "H100 SXM dense bf16 989 TFLOPS")}
 

@@ -100,8 +100,8 @@ def run(encoder, decoder, blobs, device, n_batches=N_BATCHES, threads=None,
         repeats=REPEATS, trials=TRIALS, sweep_images=SWEEP_IMAGES):
     """The bench on ``blobs`` (JPEG bytes) with the given f32 models,
     whose <end> (V - 2) the caller has pinned: (sweep lines, summary)."""
-    from .bench import PEAKS, RESNET101_GFLOP
-    from .utils.benchmarking import card_line, sync
+    from .bench import PEAKS
+    from .utils.benchmarking import RESNET101_GFLOP, card_line, sync
     from .data.pipeline import device_prefetch
     from .decoding.serve import RepeatCaptioner, make_int8_captioner
 

@@ -48,8 +48,9 @@ import torch
 
 from .bench import images
 from .device import resolve_device, use_exact_f32
-from .k1_bench import BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S
-from .utils.benchmarking import print_row, result, timed_row
+from .utils.benchmarking import (BF16_FLOP_PER_S, F32_FLOP_PER_S,
+                                 INT8_OP_PER_S, RESNET101_GFLOP, print_row,
+                                 result, timed_row)
 
 BATCH = 32
 CAP_LEN = 25
@@ -57,7 +58,6 @@ VOCAB = 10000
 REPEATS = 10
 TRIALS = 3
 IMAGE_SIZE = 224
-RESNET101_GFLOP = 15.6  # forward per image at 224x224 (bench.py)
 ENC_DIM, P_PIX = 2048, 196
 LABELS = ("f32", "amp-bf16", "amp+int8enc")
 # (compute dtype, int8 encoder, encoder peak, decoder peak) of each row.

@@ -47,6 +47,7 @@ import functools
 import torch
 
 from .. import kernels
+from ..utils.benchmarking import HBM_BYTES_PER_S
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements of a 16-byte vector
@@ -238,8 +239,6 @@ def bound_ms(sites, elem_bytes=2, term_bytes=12):
     mean and var, bf16 scale and bias on the bf16 serving trunk) at 3.35
     TB/s. The arithmetic, a few operations an element, is far below the
     card's peak: bound by bytes."""
-    from .. import k1_bench
-
     nbytes = 0
     for shape, form in sites:
         n = 1
@@ -247,4 +246,4 @@ def bound_ms(sites, elem_bytes=2, term_bytes=12):
             n *= d
         nbytes += n * elem_bytes * (2 if form == 0 else 3)
         nbytes += shape[-1] * term_bytes * (2 if form == 2 else 1)
-    return nbytes / k1_bench.HBM_BYTES_PER_S * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils.benchmarking import BF16_FLOP_PER_S, F32_FLOP_PER_S, roofline_ms
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS_PER_IMAGE = 8
@@ -86,6 +87,23 @@ def fused_attention(enc, att_enc, h, wd, bd, wf, bf, wg, bg,
 
 
 fused_attention.launches = 0
+
+
+def bound_ms(args, out):
+    """Least time for K1's work on an H100: each input (``args``, as
+    ``fused_attention`` takes them) read once, each output (ctx, alpha)
+    written once, at the HBM rate; its operations at the peak of the
+    inputs' type. Returns (ms, "bytes" or "operations")."""
+    enc, att_enc, h = args[0], args[1], args[2]
+    rows, hd = h.shape
+    b, p, d = enc.shape
+    a = att_enc.shape[2]
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *out))
+    flops = (2 * rows * hd * (a + d)  # the two products of h
+             + 4 * rows * p * a  # add, relu, multiply-add per score term
+             + 2 * rows * p * d)  # context sum
+    return roofline_ms(nbytes, flops, BF16_FLOP_PER_S
+                       if enc.element_size() == 2 else F32_FLOP_PER_S)
 
 
 def _check(enc, att_enc, h, wd, bd, wf, bf, wg, bg, k):

@@ -41,6 +41,7 @@ from .. import kernels
 from ..decoding.beam import MAX_STEPS, NEG_INF, _rows, _top_k, beam_outputs
 from ..models.attention import init_hidden_state
 from ..models.lstm import gates_to_state
+from ..utils.benchmarking import BF16_FLOP_PER_S, F32_FLOP_PER_S, roofline_ms
 from ..utils.profiling import annotate
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -258,8 +259,6 @@ def bound_ms(ops, k, steps):
     (one a beam a step, at most the whole table), the raw alphas written
     once; the step's products at the peak of the grid's dtype. ``ops``
     are ``_operands``'. Returns (ms, "bytes" or "operations")."""
-    from .. import k1_bench
-
     enc, att_enc, emb = ops["enc"], ops["att_enc"], ops["emb"]
     b, p, d = enc.shape
     a, hd = ops["wd"].shape
@@ -275,11 +274,8 @@ def bound_ms(ops, k, steps):
                      + 2 * rows * p * d  # context
                      + 2 * rows * (e + d + hd) * 4 * hd  # LSTM gates
                      + 2 * rows * hd * v)  # fc
-    peak = (k1_bench.BF16_FLOP_PER_S if enc.element_size() == 2
-            else k1_bench.F32_FLOP_PER_S)
-    by_bytes, by_ops = nbytes / k1_bench.HBM_BYTES_PER_S, flops / peak
-    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
-                                         else "operations")
+    return roofline_ms(nbytes, flops, BF16_FLOP_PER_S
+                       if enc.element_size() == 2 else F32_FLOP_PER_S)
 
 
 def _check(ops, k, start_id, end_id, max_steps):

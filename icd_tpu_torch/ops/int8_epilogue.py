@@ -42,6 +42,7 @@ import functools
 import torch
 
 from .. import kernels
+from ..utils.benchmarking import HBM_BYTES_PER_S
 
 _OUT_CODES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 _VEC = 16  # channels a thread in the kernel's vector variant
@@ -239,8 +240,6 @@ def bound_ms(sites, out_bytes=2):
     every site's f32 terms once, at 3.35 TB/s. The arithmetic, a few
     operations an element, is far below the card's peak: bound by
     bytes."""
-    from .. import k1_bench
-
     nbytes = 0
     for shape, residual, s8 in sites:
         n = 1
@@ -248,4 +247,4 @@ def bound_ms(sites, out_bytes=2):
             n *= d
         nbytes += n * (4 + (0, 1, 4)[residual] + (1 if s8 else out_bytes))
         nbytes += shape[-1] * 4 * (4 if residual == 2 else 2)
-    return nbytes / k1_bench.HBM_BYTES_PER_S * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3

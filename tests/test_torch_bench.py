@@ -273,3 +273,182 @@ def test_benches_raise_without_a_card(module):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         module.main([])
+
+
+# The measuring vocabulary's one home (utils/benchmarking.py): the
+# roofline, each kernel's bound through it, the launch account and the
+# profiler's device time; and chip_smoke's one launch check. One test
+# function: ``--dist loadfile`` deals files to workers in order of
+# their test counts, and the JAX package's tests that depend on the
+# order (test_cocoeval.py) move when this file's count does.
+
+def _roofline_written_out(nbytes, flops, peak):
+    """The roofline as K1's bound computed it before it moved."""
+    by_bytes, by_ops = nbytes / 3.35e12, flops / peak
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def _meta(*shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _check_roofline():
+    """Bytes at a tie and where they bound, operations where they do."""
+    from icd_tpu_torch.utils.benchmarking import roofline_ms
+
+    for nbytes, flops, peak, bound_by in [
+            (64e6, 1e9, 989e12, "bytes"), (1e3, 1e12, 67e12, "operations"),
+            (3.35e6, 67e6, 67e12, "bytes"), (0, 1e9, 1979e12, "operations")]:
+        got = roofline_ms(nbytes, flops, peak)
+        assert got == _roofline_written_out(nbytes, flops, peak)
+        assert got[1] == bound_by
+
+
+def _check_k1_bound(dtype, peak):
+    """``ops.fused_attention.bound_ms`` (and the name ``k1_bench`` keeps
+    for it): every input and output once at the HBM rate, the products
+    at the inputs' type's peak."""
+    from icd_tpu_torch import k1_bench
+    from icd_tpu_torch.ops.fused_attention import bound_ms
+
+    assert k1_bench.k1_bound_ms is bound_ms
+    p, d, a, h = 196, 2048, 512, 512
+    for b, k in [(64, 5), (64, 1), (3, 2)]:
+        rows, e = b * k, dtype.itemsize
+        args = (_meta(b, p, d, dtype=dtype), _meta(b, p, a, dtype=dtype),
+                _meta(rows, h, dtype=dtype), _meta(a, h, dtype=dtype),
+                _meta(a, dtype=dtype), _meta(a, dtype=dtype),
+                _meta(1, dtype=dtype), _meta(d, h, dtype=dtype),
+                _meta(d, dtype=dtype))
+        out = (_meta(rows, d, dtype=dtype),
+               _meta(rows, p, dtype=torch.float32))
+        nbytes = ((b * p * d + b * p * a + rows * h + a * h + 2 * a + 1
+                   + d * h + d + rows * d) * e + rows * p * 4)
+        flops = (2 * rows * h * (a + d) + 4 * rows * p * a
+                 + 2 * rows * p * d)
+        assert bound_ms(args, out) == _roofline_written_out(nbytes, flops,
+                                                            peak)
+
+
+def _check_k2_bound(dtype, peak):
+    from icd_tpu_torch.ops.fused_beam import bound_ms
+
+    b, k, p, d, a, h, e, v = 64, 5, 196, 2048, 512, 512, 512, 10000
+    m = lambda *s: _meta(*s, dtype=dtype)  # noqa: E731
+    ops = dict(enc=m(b, p, d), att_enc=m(b, p, a), h0=m(b, h), c0=m(b, h),
+               emb=m(v, e), wd=m(a, h), bd=m(a), wf=m(a), bf=m(1),
+               wg=m(d, h), bg=m(d), wi=m(4 * h, e + d), wh=m(4 * h, h),
+               b_sum=_meta(4 * h, dtype=torch.float32), wfc=m(v, h),
+               bfc=m(v))
+    rows, eb = b * k, dtype.itemsize
+    once = ((2 * b * h + a * h + 2 * a + 1 + d * h + d + 4 * h * (e + d)
+             + 4 * h * h + v * h + v) * eb + 4 * h * 4)
+    for steps in (1, 51):
+        nbytes = (steps * ((b * p * d + b * p * a) * eb + rows * p * 4)
+                  + once + min(v, rows * steps) * e * eb)
+        flops = steps * (2 * rows * h * (a + d) + 4 * rows * p * a
+                         + 2 * rows * p * d + 2 * rows * (e + d + h) * 4 * h
+                         + 2 * rows * h * v)
+        want = _roofline_written_out(nbytes, flops, peak)
+        got = bound_ms(ops, k, steps)
+        assert got[1] == want[1]
+        assert got[0] == pytest.approx(want[0], rel=1e-15)
+
+
+def _check_epilogue_bounds():
+    """K3's and K4's bounds over one batch-64 ResNet-101 forward, as they
+    were computed before the HBM rate moved to utils/benchmarking."""
+    from icd_tpu_torch import testing
+    from icd_tpu_torch.ops import bn_epilogue, int8_epilogue
+
+    assert bn_epilogue.bound_ms(
+        testing.bn_epilogue_sites(64)) == 1.4668256668656716
+    assert int8_epilogue.bound_ms(
+        testing.int8_epilogue_sites(64)) == 1.6656694256716418
+
+
+def _check_launch_counts():
+    """One count for each kernel of ``kernels.KERNELS``; a CPU call of
+    each wrapper runs its plain version and counts nothing."""
+    from icd_tpu_torch import kernels
+    from icd_tpu_torch.models.resnet import bn_terms
+    from icd_tpu_torch.ops.bn_epilogue import bn_epilogue
+    from icd_tpu_torch.ops.fused_attention import fused_attention
+    from icd_tpu_torch.ops.fused_beam import beam_search_fused
+    from icd_tpu_torch.ops.int8_epilogue import int8_epilogue
+    from icd_tpu_torch.testing import (bn_epilogue_case, int8_epilogue_case,
+                                       steered_decoder)
+    from icd_tpu_torch.utils.benchmarking import (launch_counts, launches,
+                                                  reset_launches)
+
+    reset_launches()
+    assert launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    gen = torch.Generator().manual_seed(0)
+    n = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
+    fused_attention(n(2, 9, 8), n(2, 9, 6), n(4, 5), n(6, 5), n(6), n(6),
+                    n(1), n(8, 5), n(8), rows_per_image=2)
+    beam_search_fused(steered_decoder(13, 6, 5, 4, 8, 1, "cpu"), n(2, 9, 8),
+                      2, 10, 11, max_steps=3)
+    x, bn, cd, r, _ = bn_epilogue_case((2, 3, 3, 8), 1, gen, "f32")
+    bn_epilogue(x, bn_terms(bn, cd), r)
+    acc, terms, other = int8_epilogue_case((2, 3, 3, 8), 1, True, gen)
+    int8_epilogue(acc, terms, other)
+    assert launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    assert launches() == (0, 0)
+
+
+def _check_device_us():
+    from types import SimpleNamespace
+
+    from icd_tpu_torch.utils.benchmarking import device_us
+
+    assert device_us(SimpleNamespace(self_device_time_total=7.5)) == 7.5
+    assert device_us(SimpleNamespace(self_cuda_time_total=2.0)) == 2.0
+    assert device_us(SimpleNamespace(self_device_time_total=1.0,
+                                     self_cuda_time_total=2.0)) == 1.0
+    assert device_us(SimpleNamespace()) == 0.0
+
+
+def _check_expect_launches():
+    """chip_smoke's one launch check, with the counts set by hand: every
+    kernel recorded under the path, a count given checked, None read."""
+    import chip_smoke
+    from icd_tpu_torch import kernels
+    from icd_tpu_torch.utils.benchmarking import _wrappers, reset_launches
+
+    results = {name: {"launches_by_path": {}} for name in kernels.KERNELS}
+    set_to = dict(fused_attention=3, fused_beam=0, bn_epilogue=100,
+                  int8_epilogue=7)
+    try:
+        for name, fn in _wrappers().items():
+            fn.launches = set_to[name]
+        got = chip_smoke.expect_launches(results, "path", fused_attention=3,
+                                         fused_beam=0, bn_epilogue=100,
+                                         int8_epilogue=None)
+        assert got == set_to
+        assert {name: r["launches_by_path"] for name, r in results.items()} \
+            == {name: {"path": n} for name, n in set_to.items()}
+        with pytest.raises(SystemExit, match="other: bn_epilogue launches"):
+            chip_smoke.expect_launches(results, "other", bn_epilogue=0)
+        counts = dict(set_to, fused_attention=[1, 2])
+        chip_smoke.expect_launches(results, "given", counts)
+        assert results["fused_attention"]["launches_by_path"]["given"] == [
+            1, 2]
+    finally:
+        reset_launches()
+
+
+def test_measuring_vocabulary_and_launch_account():
+    """The roofline's choice, K1's and K2's bounds on meta tensors against
+    the formulas written out (bf16 and f32), K3's and K4's bounds equal to
+    the values they had, the launch account, the profiler's device time
+    and chip_smoke's ``expect_launches``."""
+    _check_roofline()
+    for dtype, peak in [(torch.bfloat16, 989e12), (torch.float32, 67e12)]:
+        _check_k1_bound(dtype, peak)
+        _check_k2_bound(dtype, peak)
+    _check_epilogue_bounds()
+    _check_launch_counts()
+    _check_device_us()
+    _check_expect_launches()

@@ -11,6 +11,7 @@ thread, on the clock of the profiler's device trace:
 - serving: ``serve_load``, ``serve_fetch``, ``serve_detok``
   (``beam_eval.caption_images``), ``serve_upload`` (the captioners'
   ``encode``), ``beam_step`` / ``beam_sync`` / ``beam_backtrack``
+  and, inside a step replayed from its CUDA graph, ``beam_replay``
   (``decoding/beam.py``), ``greedy_step`` / ``greedy_sync``
   (``decoding/greedy.py``), ``k2_launch`` / ``k2_sync``
   (``ops/fused_beam.py``);

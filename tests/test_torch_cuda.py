@@ -51,6 +51,7 @@ import os
 import pytest
 import torch
 
+import icd_tpu_torch.decoding.beam as beam
 import icd_tpu_torch.models.attention as attention
 from icd_tpu_torch.decoding.beam import beam_search_batched
 from icd_tpu_torch.decoding.serve import (make_beam_captioner,
@@ -77,8 +78,9 @@ from icd_tpu_torch.params import adam_moments
 from icd_tpu_torch.testing import (SCORE_BIAS, SharedQuantization,
                                    decoder_grads, k2_step_record,
                                    plain_step_record, relative_errors,
-                                   seeded_captions, steered_decoder,
-                                   train_step_errors, train_step_record)
+                                   seeded_captions, steer_end,
+                                   steered_decoder, train_step_errors,
+                                   train_step_record)
 
 
 @pytest.fixture
@@ -274,6 +276,54 @@ def test_beam_search_through_k1_matches_plain(card):
         assert torch.equal(out[key], ref[key]), key
     torch.testing.assert_close(out["alphas"], ref["alphas"], atol=5e-6,
                                rtol=0)
+
+
+def test_beam_step_graph_equals_the_uncaptured_step(card):
+    """Each beam step as one replay of its CUDA graph against the same
+    step run uncaptured: every output to the bit, and K1 counted once a
+    step, at the serving widths in bf16 (images finishing at different
+    steps), with one and eight beams, the int8 grid, searches cut off by
+    max_steps, two searches in turn through one graph, and a new batch
+    size taking a graph of its own."""
+    def same(dec, grids, k, max_steps=12, int8_grid=False):
+        end = dec.vocab_size - 2
+        before = fused_attention.launches
+        out = beam_search_batched(dec, grids, k, end - 1, end, max_steps,
+                                  int8_grid)
+        assert fused_attention.launches - before == out["steps"]
+        ref = beam._beam_search(dec, grids, k, end - 1, end, max_steps,
+                                int8_grid, captured=False)
+        assert out["steps"] == ref["steps"]
+        for key in ("seq", "seq_len", "found", "alphas"):
+            assert torch.equal(out[key], ref[key]), key
+        return out
+
+    gen = torch.Generator().manual_seed(1)
+    wide = steered_decoder(10000, 512, 512, 512, 2048, seed=1, device=card)
+    steer_end(wide, 9998)  # as the serving cells steer: 11 to 16 words
+    wide = wide.to(torch.bfloat16)
+    grids = torch.randn(64, 196, 2048, generator=gen).to(card, torch.bfloat16)
+    out = same(wide, grids, 5, max_steps=beam.MAX_STEPS)
+    assert out["steps"] < beam.MAX_STEPS
+    assert len(set(out["seq_len"].tolist())) > 1
+    same(wide, grids, 5, max_steps=beam.MAX_STEPS, int8_grid=True)
+
+    dec = steered_decoder(60, 32, 48, 16, 64, seed=0, device=card)
+    grids = torch.randn(6, 49, 64, generator=gen).to(card)
+    for k in (1, 8):
+        same(dec, grids, k)
+    cut = same(dec, grids, 5, max_steps=3)
+    assert cut["steps"] == 3 and not bool(cut["found"].all())
+    first = same(dec, grids, 5)
+    kept = {key: v.clone() for key, v in first.items() if key != "steps"}
+    n_graphs = len(beam._GRAPHS[dec])
+    second = same(dec, torch.randn(6, 49, 64, generator=gen).to(card), 5)
+    assert len(beam._GRAPHS[dec]) == n_graphs
+    assert not torch.equal(second["alphas"], first["alphas"])
+    for key, v in kept.items():  # no output aliases the graph's state
+        assert torch.equal(first[key], v), key
+    same(dec, grids[:3], 5)
+    assert len(beam._GRAPHS[dec]) == n_graphs + 1
 
 
 def test_captioner_on_card_matches_cpu(card):
